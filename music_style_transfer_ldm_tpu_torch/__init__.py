@@ -1,0 +1,9 @@
+"""PyTorch + CUDA port of the latent-diffusion music style-transfer system.
+
+A sibling of the JAX package ``music_style_transfer_ldm_tpu``, which stays
+the reference.  Module names mirror the JAX package's; inside, modules
+are NCHW ``nn.Module``s, and public functions take the JAX package's NHWC
+layout.  Entry points run on the GPU unless the caller passes
+``device="cpu"``.  Kernels: ``ops/fused_sampler.py`` (CUDA C++,
+``csrc/fused_sampler.cu``) and ``ops/ddim_update.py`` (Triton).
+"""

@@ -1,0 +1,51 @@
+"""Spectrogram autoencoder in NCHW.
+
+Encoder: three stride-2 convs to a [latent_dim, 16, 16] latent, with
+BatchNorm (eps 1e-5; flax momentum 0.9 is torch momentum 0.1) and ReLU
+on the first two, BN only on the last.  Decoder: three k4 s2 transpose
+convs ending in tanh.  Parameter counts: encoder 111,840, decoder
+198,209.  Inference uses eval mode (running statistics).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from music_style_transfer_ldm_tpu_torch.models.layers import (
+    conv_s2, convT_k4,
+)
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+class SpectrogramEncoder(nn.Module):
+    """[B, 1, 128, 128] -> [B, latent_dim, 16, 16]."""
+
+    def __init__(self, latent_dim: int = 32):
+        super().__init__()
+        self.conv1, self.bn1 = conv_s2(1, 64), _bn(64)
+        self.conv2, self.bn2 = conv_s2(64, 128), _bn(128)
+        self.conv3, self.bn3 = conv_s2(128, latent_dim), _bn(latent_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn2(self.conv2(x)))
+        return self.bn3(self.conv3(x))
+
+
+class SpectrogramDecoder(nn.Module):
+    """[B, latent_dim, 16, 16] -> [B, 1, 128, 128] in [-1, 1]."""
+
+    def __init__(self, latent_dim: int = 32):
+        super().__init__()
+        self.deconv1, self.bn1 = convT_k4(latent_dim, 128), _bn(128)
+        self.deconv2, self.bn2 = convT_k4(128, 64), _bn(64)
+        self.deconv3 = convT_k4(64, 1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        z = torch.relu(self.bn1(self.deconv1(z)))
+        z = torch.relu(self.bn2(self.deconv2(z)))
+        return torch.tanh(self.deconv3(z))

@@ -1,0 +1,254 @@
+"""Inference engine with request microbatching, on the GPU.
+
+* The LDM lives on the device once; requests are padded to a fixed
+  ladder of batch buckets (1, 2, 4, 8), and ``warmup`` runs every bucket
+  once before traffic (kernel builds and JIT happen there).
+* Buckets up to ``fused_bucket_max`` take the fused trajectory kernel
+  (sampler 'fused' or 'fused-dpm++'); larger buckets take the scan
+  sampler, whose DDIM step is the Triton update kernel.
+* Each request's noise comes from a generator seeded by its own seed, so
+  its result does not depend on how requests were grouped.
+* ``_finish_outputs`` inverts the decoded images to audio on the device:
+  dB -> power -> NNLS -> Griffin-Lim.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from music_style_transfer_ldm_tpu_torch.audio.griffinlim import mel_to_audio
+from music_style_transfer_ldm_tpu_torch.audio.mel import db_to_power
+from music_style_transfer_ldm_tpu_torch.audio.quantize import (
+    unit_image_to_db,
+)
+from music_style_transfer_ldm_tpu_torch.config import AudioConfig
+from music_style_transfer_ldm_tpu_torch.models.ldm import (
+    match_moments, transfer_decoded,
+)
+from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
+    fused_content_style_transfer,
+)
+from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
+
+SAMPLERS = ("ddim", "dpm++", "fused", "fused-dpm++")
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    steps: int = 50
+    eta: float = 0.0
+    # 'ddim', 'dpm++' (DPM-Solver++(2M); with sample_steps < steps a
+    # coarse grid), 'fused' or 'fused-dpm++' (the whole-trajectory kernel
+    # on buckets <= fused_bucket_max, the scan sampler with the same
+    # update rule above).
+    sampler: str = "ddim"
+    sample_steps: Optional[int] = None
+    # Classifier-free style guidance; != 1 needs a scan sampler.
+    guidance: float = 1.0
+    # Largest bucket routed to the fused kernel; None = utils.chips.
+    fused_bucket_max: Optional[int] = None
+    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    max_wait_ms: float = 5.0
+    image_size: int = 128
+    match_level: bool = False
+    griffin_lim_iters: int = 32
+    nnls_iters: int = 64
+    invert_audio: bool = True
+
+
+class InferenceEngine:
+    """Warm engine over an LDM (``models.ldm.build_ldm`` or one filled by
+    ``interop.flax_weights.load_flax_variables``)."""
+
+    def __init__(self, ldm, config: Optional[EngineConfig] = None,
+                 audio: Optional[AudioConfig] = None):
+        self.ldm = ldm
+        self.config = config or EngineConfig()
+        if self.config.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.config.sampler!r}")
+        if (self.config.guidance != 1.0
+                and self.config.sampler in ("fused", "fused-dpm++")):
+            raise ValueError(
+                "guidance != 1 needs a scan sampler (ddim/dpm++); the "
+                "fused trajectory kernel runs the conditional branch only")
+        self.fused_bucket_max = (self.config.fused_bucket_max
+                                 if self.config.fused_bucket_max is not None
+                                 else fused_bucket_max())
+        self.audio = audio or AudioConfig()
+        self.device = ldm.device
+        self._queue: queue.Queue = queue.Queue()
+        self._stats = {"requests": 0, "batches": 0, "padded_slots": 0}
+        self._stats_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._warm_buckets: frozenset = frozenset()
+        self._thread: Optional[threading.Thread] = None
+
+    # ---------------- the transfer program -----------------------------
+
+    def uses_fused(self, bucket: int) -> bool:
+        """Whether a bucket of this size takes the fused kernel."""
+        return (self.config.sampler in ("fused", "fused-dpm++")
+                and bucket <= self.fused_bucket_max)
+
+    @torch.no_grad()
+    def _transfer(self, content: torch.Tensor, style: torch.Tensor,
+                  seeds: np.ndarray) -> dict:
+        cfg = self.config
+        fused = cfg.sampler in ("fused", "fused-dpm++")
+        # 'fused-dpm++' keeps the second-order update on both routes.
+        inner = "dpm++" if cfg.sampler == "fused-dpm++" else (
+            "ddim" if fused else cfg.sampler)
+        if self.uses_fused(content.shape[0]):
+            decoded = fused_content_style_transfer(
+                self.ldm, content, style, num_timesteps=cfg.steps,
+                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
+                seeds=seeds)
+        else:
+            decoded, _ = transfer_decoded(
+                self.ldm, content, style, num_timesteps=cfg.steps,
+                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
+                guidance=cfg.guidance, seeds=seeds)
+        if cfg.match_level:
+            decoded = match_moments(decoded, style)
+        return self._finish_outputs(decoded)
+
+    def _finish_outputs(self, decoded: torch.Tensor) -> dict:
+        """{'image': [B, S, S, 1]} plus, with invert_audio, 'audio'
+        [B, 3 * sr] from NNLS + Griffin-Lim on the device."""
+        cfg, a = self.config, self.audio
+        out = {"image": decoded}
+        if cfg.invert_audio:
+            db = unit_image_to_db(decoded[:, :, :, 0])
+            out["audio"] = mel_to_audio(
+                db_to_power(db), sr=a.sample_rate, n_fft=a.n_fft,
+                hop_length=a.hop_length, n_iter=cfg.griffin_lim_iters,
+                nnls_iters=cfg.nnls_iters, length=int(3 * a.sample_rate))
+        return out
+
+    def warmup(self) -> None:
+        """Run every bucket once (kernel builds, JIT) before traffic."""
+        S = self.config.image_size
+        for b in self.config.batch_buckets:
+            x = torch.zeros((b, S, S, 1), device=self.device)
+            self._transfer(x, x, np.zeros((b,), np.int64))
+            self._warm_buckets = self._warm_buckets | {b}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---------------- synchronous API -----------------------------------
+
+    def transfer_batch(self, content: np.ndarray, style: np.ndarray,
+                       seeds=0) -> dict:
+        """[B, 128, 128, 1] content + style -> {'image', 'audio'} numpy.
+
+        seeds: one for all items, or one per item.  Batches larger than
+        the biggest bucket are split; smaller ones are padded with
+        repeats of the last item to the next bucket and cropped back."""
+        if not self._warm_buckets:
+            self.warmup()
+        warm = self._warm_buckets
+        b = content.shape[0]
+        seeds = np.broadcast_to(np.asarray(seeds, np.int64), (b,))
+        max_bucket = max(warm)
+        if b > max_bucket:
+            parts = [self.transfer_batch(content[s:s + max_bucket],
+                                         style[s:s + max_bucket],
+                                         seeds[s:s + max_bucket])
+                     for s in range(0, b, max_bucket)]
+            return {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
+        bucket = min(k for k in warm if k >= b)
+        pad = bucket - b
+        if pad:
+            content = np.concatenate(
+                [content, np.repeat(content[-1:], pad, axis=0)])
+            style = np.concatenate(
+                [style, np.repeat(style[-1:], pad, axis=0)])
+            seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
+        out = self._transfer(
+            torch.as_tensor(np.asarray(content, np.float32),
+                            device=self.device),
+            torch.as_tensor(np.asarray(style, np.float32),
+                            device=self.device), seeds)
+        with self._stats_lock:
+            self._stats["padded_slots"] += pad
+            self._stats["batches"] += 1
+        return {k: v[:b].cpu().numpy() for k, v in out.items()}
+
+    # ---------------- async microbatching API ---------------------------
+
+    def start(self) -> None:
+        if self._thread is None:
+            if not self._warm_buckets:
+                self.warmup()
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._dispatch_loop,
+                                            daemon=True)
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def submit(self, content: np.ndarray, style: np.ndarray,
+               seed: int = 0) -> "queue.Queue":
+        """Enqueue one request ([128, 128, 1] images); returns a queue
+        that receives the {'image', 'audio'} dict (or an exception)."""
+        done: queue.Queue = queue.Queue(maxsize=1)
+        self._queue.put((content, style, seed, done))
+        with self._stats_lock:
+            self._stats["requests"] += 1
+        return done
+
+    def _dispatch_loop(self) -> None:
+        wait_s = self.config.max_wait_ms / 1000.0
+        while not self._stop.is_set():
+            max_b = max(self._warm_buckets)
+            try:
+                first = self._queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + wait_s
+            while len(batch) < max_b:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                content = np.stack([r[0] for r in batch])
+                style = np.stack([r[1] for r in batch])
+                seeds = np.asarray([r[2] for r in batch], np.int64)
+                out = self.transfer_batch(content, style, seeds=seeds)
+                for i, (_, _, _, done) in enumerate(batch):
+                    done.put({k: v[i] for k, v in out.items()})
+            except Exception as e:  # noqa: BLE001 — deliver, don't die
+                for _, _, _, done in batch:
+                    done.put(e)
+        # Fail anything still queued so no waiter hangs after stop().
+        while True:
+            try:
+                _, _, _, done = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            done.put(RuntimeError("engine stopped"))
+
+    def pending(self) -> int:
+        """Requests queued but not yet dispatched."""
+        return self._queue.qsize()
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return {**self._stats, "pending": self.pending()}

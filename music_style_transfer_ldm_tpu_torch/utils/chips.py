@@ -1,0 +1,35 @@
+"""Device selection and the fused-route bucket limit.
+
+Entry points default to ``device="cuda"`` and raise when there is no
+card: there is no silent CPU path.  Tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+# Largest bucket routed to the fused trajectory kernel.  Same routing as
+# the JAX package; the crossover with the scan route is not measured on
+# this card yet (override: MSTLDM_FUSED_BUCKET_MAX).
+_DEFAULT_FUSED_BUCKET_MAX = 4
+
+
+def fused_bucket_max() -> int:
+    """Largest batch the engine sends to the fused trajectory kernel."""
+    env = os.environ.get("MSTLDM_FUSED_BUCKET_MAX")
+    if env:
+        return max(1, int(env))
+    return _DEFAULT_FUSED_BUCKET_MAX
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The requested device, or an error if it is a CUDA device and no
+    card is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' "
+            "explicitly to run the plain PyTorch versions on the CPU")
+    return device
