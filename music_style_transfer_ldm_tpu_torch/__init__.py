@@ -5,5 +5,7 @@ the reference.  Module names mirror the JAX package's; inside, modules
 are NCHW ``nn.Module``s, and public functions take the JAX package's NHWC
 layout.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``.  Kernels: ``ops/fused_sampler.py`` (CUDA C++,
-``csrc/fused_sampler.cu``) and ``ops/ddim_update.py`` (Triton).
+``csrc/fused_sampler.cu``), ``ops/ddim_update.py`` (Triton) and
+``ops/fused_mel_image.py`` (CUDA C++, ``csrc/fused_mel_image.cu``).
+The user's entry points are ``cli.py`` and ``serving/server.py``.
 """

@@ -50,6 +50,25 @@ def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
     return spec.reshape(*lead, *spec.shape[-2:])
 
 
+def stft_np(y: np.ndarray, n_fft: int = 2048, hop_length: int = 512,
+            win_length: int | None = None, center: bool = True
+            ) -> np.ndarray:
+    """Host numpy STFT (same window, padding and layout as ``stft``):
+    [..., T] -> [..., 1 + n_fft//2, n_frames] complex.  Used where the
+    phases are wanted on the host, e.g. ``cli transfer --phase-init
+    content``."""
+    win_length = win_length or n_fft
+    window = _padded_window_np(win_length, n_fft)
+    y = np.asarray(y, np.float32)
+    if center:
+        pad = [(0, 0)] * (y.ndim - 1) + [(n_fft // 2, n_fft // 2)]
+        y = np.pad(y, pad)
+    nf = 1 + (y.shape[-1] - n_fft) // hop_length
+    idx = np.arange(nf)[:, None] * hop_length + np.arange(n_fft)[None, :]
+    spec = np.fft.rfft(y[..., idx] * window, n=n_fft, axis=-1)
+    return np.swapaxes(spec, -1, -2)
+
+
 @functools.lru_cache(maxsize=16)
 def _window_sum_np(win_length: int, n_fft: int, hop_length: int,
                    nf: int) -> np.ndarray:

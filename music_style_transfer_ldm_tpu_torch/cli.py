@@ -1,0 +1,432 @@
+"""Command-line interface of the port.
+
+  python -m music_style_transfer_ldm_tpu_torch.cli transfer \\
+      --checkpoint ckpt.pt --content c.wav --style s.png
+  python -m music_style_transfer_ldm_tpu_torch.cli generate \\
+      --checkpoint ckpt.pt --style s.png
+  python -m music_style_transfer_ldm_tpu_torch.cli serve --checkpoint ckpt.pt
+
+Checkpoints are the port's own format (``training/checkpoint.py``).
+Everything runs on the card; ``--device cpu`` runs the plain PyTorch
+versions of the kernels on the CPU instead (the tests use it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from music_style_transfer_ldm_tpu_torch.audio.io import write_wav
+from music_style_transfer_ldm_tpu_torch.audio.processor import (
+    AudioProcessor, crossfade_stitch,
+)
+from music_style_transfer_ldm_tpu_torch.audio.quantize import (
+    unit_image_to_uint8,
+)
+from music_style_transfer_ldm_tpu_torch.audio.stft import stft_np
+from music_style_transfer_ldm_tpu_torch.config import default_config
+from music_style_transfer_ldm_tpu_torch.data.build_dataset import chunk_audio
+from music_style_transfer_ldm_tpu_torch.datasets.folder import (
+    load_image_unit,
+)
+from music_style_transfer_ldm_tpu_torch.models.ldm import (
+    checkpoint_distill_meta, content_style_transfer, load_ldm,
+    match_moments, style_ddim_sample,
+)
+from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
+    fused_content_style_transfer, fused_style_sample,
+)
+from music_style_transfer_ldm_tpu_torch.serving.engine import (
+    EngineConfig, InferenceEngine,
+)
+from music_style_transfer_ldm_tpu_torch.serving.server import serve
+from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
+from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
+
+# Images are read by utils/png.py, which takes PNG only: another image
+# type raises there rather than being decoded as audio.
+_IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp")
+SAMPLERS = ["ddim", "dpm++", "fused", "fused-dpm++"]
+
+
+def chunk_seeds(seed: int, n: int) -> np.ndarray:
+    """One noise seed per chunk from (seed, chunk index); no two (seed,
+    index) pairs share a stream, unlike seed + index."""
+    root = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.asarray([int(np.random.SeedSequence([root, i]).generate_state(
+        1, np.uint64)[0]) >> 1 for i in range(n)], np.int64)
+
+
+def _load_image_or_audio(path: str, ap, n_mels: int = 128) -> np.ndarray:
+    """PNG spectrogram or audio file -> [1, 128, 128, 1] float image."""
+    p = Path(path)
+    if p.suffix.lower() in _IMAGE_SUFFIXES:
+        return load_image_unit(p)[None]
+    audio, _ = ap.load_audio(p)
+    audio = ap.trim_silence(audio)
+    return ap.clip_to_content_image(audio, n_mels=n_mels)[None]
+
+
+def _audio_to_chunk_images(path: str, ap, n_mels: int = 128,
+                           overlap: float = 0.0):
+    """Whole clip -> ([n, 128, 128, 1] images, [n, samples] chunks): 3 s
+    chunks (the last zero-padded), overlapping by ``overlap``, through
+    the front end as one batch.  Each chunk's dB reference is taken over
+    all its frames before the crop to 128."""
+    audio, sr = ap.load_audio(path)
+    audio = ap.trim_silence(audio)
+    hop_s = 3.0 * (1.0 - overlap) if overlap else None
+    chunks = chunk_audio(audio, sr, 3.0, None, hop_seconds=hop_s)
+    imgs = ap.waveform_batch_to_unit_images(chunks, n_mels=n_mels)
+    return imgs[:, :, :128, None].cpu().numpy().astype(np.float32), chunks
+
+
+def _save_outputs(img01: np.ndarray, output: str, ap,
+                  init_phase: np.ndarray | None = None,
+                  hop_samples: int | None = None) -> None:
+    """Write <output>.png (the spectrogram) and <output>.wav.
+
+    img01 is [H, W] or [N, H, W] (a chunked clip: the PNG tiles the
+    chunks side by side, the chunks are inverted as one batch and
+    stitched into one WAV).  Audio is inverted from the uint8-quantized
+    image, i.e. from what the PNG holds."""
+    out = Path(output)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    sr = ap.target_sr
+    batched = img01.ndim == 3
+    u8 = unit_image_to_uint8(torch.as_tensor(img01)).numpy()
+    png = np.concatenate(list(u8), axis=1) if batched else u8
+    out.with_suffix(".png").write_bytes(write_png_gray(png))
+    audio = ap.grayscale_mel_spectrogram_image_to_audio(
+        u8, length=3 * sr, init_phase=init_phase).cpu().numpy()
+    if batched:
+        audio = crossfade_stitch(
+            audio, audio.shape[1] if hop_samples is None else hop_samples)
+    write_wav(out.with_suffix(".wav"), audio, sr)
+    print(f"wrote {out.with_suffix('.png')} and {out.with_suffix('.wav')}")
+
+
+def _restore(args):
+    """(config, ldm, AudioProcessor) on ``--device``."""
+    cfg = default_config()
+    ldm = load_ldm(cfg, full_checkpoint=args.checkpoint,
+                   use_ema=not args.raw_weights, device=args.device)
+    return cfg, ldm, AudioProcessor(device=args.device)
+
+
+def _warn_distill_mismatch(args) -> None:
+    """Warn when a distilled student is sampled off its training grid: a
+    student distilled with t_max T to N steps only saw linspace(T-1, 0,
+    N+1).  Advisory only."""
+    meta = checkpoint_distill_meta(args.checkpoint)
+    if not meta:
+        return
+    want_steps = int(meta.get("t_max", args.steps))
+    want_sample = int(meta.get("steps", 0)) + 1
+    got_sample = (args.sample_steps if args.sample_steps is not None
+                  else args.steps)
+    if int(args.steps) != want_steps or int(got_sample) != want_sample:
+        print(f"WARNING: checkpoint was distilled for --steps {want_steps} "
+              f"--sample-steps {want_sample}, but got --steps {args.steps} "
+              f"--sample-steps {got_sample}: the student never trained on "
+              f"this grid and output quality will degrade silently",
+              file=sys.stderr)
+
+
+def _warn_generate_distill_mismatch(args, num_timesteps: int) -> None:
+    """Generation walks linspace(T-1, 0, --steps) over the whole
+    schedule: a distilled student is on its grid only when distilled with
+    t_max == T and --steps == its steps + 1.  Advisory only."""
+    meta = checkpoint_distill_meta(args.checkpoint)
+    if not meta:
+        return
+    t_max = int(meta.get("t_max", num_timesteps))
+    want = int(meta.get("steps", 0)) + 1
+    if t_max != num_timesteps:
+        print(f"WARNING: checkpoint was distilled for TRANSFER over "
+              f"t_max={t_max} (< the full T={num_timesteps} schedule); "
+              "generation from noise walks timesteps it never trained on "
+              "and output quality will degrade silently",
+              file=sys.stderr)
+    elif int(args.steps) != want:
+        print(f"WARNING: generation-distilled checkpoint expects "
+              f"--steps {want} (its training grid), got {args.steps}: "
+              "off-grid sampling degrades silently", file=sys.stderr)
+
+
+def _check_guidance(args) -> None:
+    if args.sampler in ("fused", "fused-dpm++") and args.guidance != 1.0:
+        raise SystemExit("--guidance needs the scan samplers (ddim/dpm++); "
+                         "the fused trajectory kernel runs the single "
+                         "conditional branch only")
+
+
+def cmd_generate(args) -> int:
+    """Style-conditioned generation from noise."""
+    cfg, ldm, ap = _restore(args)
+    _warn_generate_distill_mismatch(args, cfg.diffusion.num_timesteps)
+    _check_guidance(args)
+    style = torch.as_tensor(_load_image_or_audio(args.style, ap))
+    lat = cfg.model.image_size // 8
+    z_shape = (1, lat, lat, cfg.model.latent_dim)
+    if args.sampler in ("fused", "fused-dpm++"):
+        decoded = fused_style_sample(
+            ldm, z_shape, style, timesteps=args.steps, eta=args.eta,
+            sampler="dpm++" if args.sampler == "fused-dpm++" else "ddim",
+            seed=args.seed)
+    else:
+        decoded = style_ddim_sample(
+            ldm, z_shape, style, timesteps=args.steps, eta=args.eta,
+            sampler=args.sampler, guidance=args.guidance, seed=args.seed)
+    _save_outputs(decoded[0, :, :, 0].cpu().numpy(), args.output, ap)
+    return 0
+
+
+def cmd_transfer(args) -> int:
+    """Content + style transfer, the product path.
+
+    Content audio of any length is cut into 3 s chunks that go through
+    the sampler together (the fused samplers in groups of
+    ``fused_bucket_max()``); each chunk's noise comes from (--seed, its
+    index), so the result does not depend on the grouping.  The chunks'
+    audio is stitched back into one WAV."""
+    _, ldm, ap = _restore(args)
+    _warn_distill_mismatch(args)
+    _check_guidance(args)
+    if not 0.0 <= args.overlap < 1.0:
+        raise SystemExit(f"--overlap must be in [0, 1); got {args.overlap}")
+    content_chunks = None
+    if Path(args.content).suffix.lower() in _IMAGE_SUFFIXES:
+        if args.overlap:
+            raise SystemExit("--overlap needs audio content "
+                             "(got a spectrogram image)")
+        content = _load_image_or_audio(args.content, ap)
+    else:
+        content, content_chunks = _audio_to_chunk_images(
+            args.content, ap, overlap=args.overlap)
+    n = content.shape[0]
+    style = np.repeat(_load_image_or_audio(args.style, ap), n, axis=0)
+    seeds = chunk_seeds(args.seed, n)
+    content_t, style_t = torch.as_tensor(content), torch.as_tensor(style)
+    if args.sampler in ("fused", "fused-dpm++"):
+        cap = fused_bucket_max()
+        inner = "dpm++" if args.sampler == "fused-dpm++" else "ddim"
+        decoded = torch.cat([fused_content_style_transfer(
+            ldm, content_t[lo:lo + cap], style_t[lo:lo + cap],
+            num_timesteps=args.steps, eta=args.eta, sampler=inner,
+            steps=args.sample_steps, seeds=seeds[lo:lo + cap])
+            for lo in range(0, n, cap)])
+    else:
+        decoded, _ = content_style_transfer(
+            ldm, content_t, style_t, num_timesteps=args.steps, eta=args.eta,
+            sampler=args.sampler, steps=args.sample_steps,
+            guidance=args.guidance, seeds=seeds)
+    if args.match_level:
+        decoded = match_moments(decoded, style_t.to(decoded.device))
+    else:
+        out_level = float(decoded.mean())
+        ref_level = float(style.mean())
+        if out_level < 0.5 * ref_level:
+            print(f"note: output global level ({out_level:.3f}) is well "
+                  f"below the style reference's ({ref_level:.3f}); the "
+                  "inverted audio may be very quiet. Re-run with "
+                  "--match-level to moment-match the output to the style.",
+                  file=sys.stderr)
+    init_phase = None
+    if args.phase_init == "content":
+        if content_chunks is None:
+            raise SystemExit("--phase-init content needs audio content "
+                             "(got a spectrogram image)")
+        # Seed Griffin-Lim with the content chunks' own phases.
+        spec = stft_np(content_chunks, n_fft=ap.n_fft,
+                       hop_length=ap.hop_length)
+        init_phase = np.angle(spec[:, :, :128]).astype(np.float32)
+    hop_samples = (int(3 * (1.0 - args.overlap) * ap.target_sr)
+                   if args.overlap else None)
+    _save_outputs(decoded[:, :, :, 0].cpu().numpy(), args.output, ap,
+                  init_phase=init_phase, hop_samples=hop_samples)
+    return 0
+
+
+def _serve_engine_config(ecfg, args, path, name, num_timesteps: int = 200):
+    """A distilled student serves on its trained grid unless the user
+    pinned --sample-steps (then an off-grid choice warns)."""
+    meta = checkpoint_distill_meta(path)
+    if not meta:
+        return ecfg
+    want_steps = int(meta.get("t_max", args.steps))
+    want_sample = int(meta.get("steps", 0)) + 1
+    # A whole-schedule (generation) cascade's grid also serves
+    # /v1/generate unless the user pinned one.
+    gen_kw = {}
+    if args.generate_steps is None and want_steps == num_timesteps:
+        gen_kw = {"generate_steps": want_sample}
+    if args.sample_steps is None:
+        print(f"{name}: distilled checkpoint (stages {meta.get('stages')}):"
+              f" serving on its trained grid steps={want_steps} "
+              f"sample_steps={want_sample}"
+              + (f" (generate route: {want_sample})" if gen_kw else ""),
+              flush=True)
+        return dataclasses.replace(ecfg, steps=want_steps,
+                                   sample_steps=want_sample, **gen_kw)
+    if int(args.steps) != want_steps or int(args.sample_steps) != want_sample:
+        print(f"WARNING: {name}: checkpoint was distilled for --steps "
+              f"{want_steps} --sample-steps {want_sample}, but serving with "
+              f"--steps {args.steps} --sample-steps {args.sample_steps}: "
+              "the student never trained on this grid and output quality "
+              "will degrade silently", file=sys.stderr)
+    return ecfg
+
+
+def build_engines(args) -> dict:
+    """{name: warmed InferenceEngine} for ``serve``'s --checkpoint entries
+    (a bare path, or name=path; the first is the default model).
+    Warming builds every kernel, before anything listens."""
+    cfg = default_config()
+    ecfg = EngineConfig(steps=args.steps, sampler=args.sampler,
+                        sample_steps=args.sample_steps,
+                        guidance=args.guidance,
+                        generate_steps=args.generate_steps,
+                        generate_guidance=args.generate_guidance,
+                        batch_buckets=tuple(args.buckets),
+                        max_wait_ms=args.max_wait_ms,
+                        autoscale=args.autoscale)
+    engines = {}
+    for spec in args.checkpoint:
+        name, _, path = spec.rpartition("=")
+        name = name or ("default" if not engines else
+                        f"model{len(engines)}")
+        ldm = load_ldm(cfg, full_checkpoint=path,
+                       use_ema=not args.raw_weights, device=args.device)
+        engines[name] = InferenceEngine(ldm, _serve_engine_config(
+            ecfg, args, path, name, cfg.diffusion.num_timesteps),
+            audio=cfg.audio)
+    print(f"warming {len(args.buckets)} batch buckets x "
+          f"{len(engines)} model(s)...", flush=True)
+    for eng in engines.values():
+        eng.warmup()
+    return engines
+
+
+def cmd_serve(args) -> int:
+    """Run the HTTP inference server over one or more checkpoints."""
+    engines = build_engines(args)
+    engine = engines if len(engines) > 1 else next(iter(engines.values()))
+    print(f"serving on http://{args.host}:{args.port}"
+          + (" (bearer auth)" if args.auth_token else ""), flush=True)
+    serve(engine, host=args.host, port=args.port, block=True,
+          auth_token=args.auth_token, request_timeout_s=args.timeout,
+          max_queue=args.max_queue)
+    return 0
+
+
+def _common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "PyTorch versions (tests)")
+    p.add_argument("--raw-weights", action="store_true",
+                   help="use the raw (non-EMA) weights even when the "
+                        "checkpoint carries ema_params")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="music_style_transfer_ldm_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    gen = sub.add_parser("generate", help="style-conditioned generation")
+    gen.add_argument("--checkpoint", required=True)
+    gen.add_argument("--style", required=True)
+    gen.add_argument("--steps", type=int, default=100)
+    gen.add_argument("--eta", type=float, default=0.0)
+    gen.add_argument("--sampler", choices=SAMPLERS, default="ddim",
+                     help="'fused*' run the whole trajectory as one kernel")
+    gen.add_argument("--seed", type=int, default=0)
+    gen.add_argument("--guidance", type=float, default=1.0,
+                     help="classifier-free style-guidance scale (0 = "
+                          "unconditional, 1 = plain conditional; needs a "
+                          "checkpoint trained with style_dropout > 0; scan "
+                          "samplers only)")
+    gen.add_argument("--output", default="outputs/generated")
+    _common(gen)
+    gen.set_defaults(fn=cmd_generate)
+
+    tr = sub.add_parser("transfer", help="content+style transfer")
+    tr.add_argument("--checkpoint", required=True)
+    tr.add_argument("--content", required=True)
+    tr.add_argument("--style", required=True)
+    tr.add_argument("--steps", type=int, default=100)
+    tr.add_argument("--eta", type=float, default=0.0)
+    tr.add_argument("--sampler", choices=SAMPLERS, default="ddim",
+                    help="'fused*' run the whole trajectory as one kernel "
+                         "(fused-dpm++ = second-order update, use with "
+                         "--sample-steps)")
+    tr.add_argument("--sample-steps", type=int, default=None,
+                    help="coarse sampler grid (< --steps noising depth); "
+                         "pairs with --sampler dpm++/fused-dpm++")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--guidance", type=float, default=1.0,
+                    help="classifier-free style-strength knob (0 = ignore "
+                         "style, 1 = plain conditional, > 1 = amplified "
+                         "style; needs a checkpoint trained with "
+                         "style_dropout > 0; scan samplers only)")
+    tr.add_argument("--overlap", type=float, default=0.0,
+                    help="fraction in [0, 1): overlapping 3 s chunks with "
+                         "crossfaded seams; 0 = disjoint chunks")
+    tr.add_argument("--phase-init", choices=["random", "content"],
+                    default="random",
+                    help="Griffin-Lim phase seed: 'content' reuses the "
+                         "content audio's own phases")
+    tr.add_argument("--match-level", action="store_true",
+                    help="affine-match each output's global level and "
+                         "contrast to its style image")
+    tr.add_argument("--output", default="outputs/transferred")
+    _common(tr)
+    tr.set_defaults(fn=cmd_transfer)
+
+    sv = sub.add_parser("serve", help="HTTP inference server (microbatched)")
+    sv.add_argument("--checkpoint", required=True, action="append",
+                    help="checkpoint path, or name=path (repeat for "
+                         "multi-model routing; the first is the default)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8787)
+    sv.add_argument("--steps", type=int, default=50)
+    sv.add_argument("--sampler", choices=SAMPLERS, default="ddim",
+                    help="'fused*' run the trajectory kernel on buckets up "
+                         "to fused_bucket_max()")
+    sv.add_argument("--sample-steps", type=int, default=None,
+                    help="coarse sampler grid (< --steps noising depth)")
+    sv.add_argument("--guidance", type=float, default=1.0,
+                    help="classifier-free style-guidance scale (scan "
+                         "samplers only)")
+    sv.add_argument("--generate-steps", type=int, default=None,
+                    help="step grid of /v1/generate (default: --steps)")
+    sv.add_argument("--generate-guidance", type=float, default=1.0,
+                    help="guidance of /v1/generate")
+    sv.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
+    sv.add_argument("--max-wait-ms", type=float, default=5.0)
+    sv.add_argument("--auth-token", default=None,
+                    help="require 'Authorization: Bearer <token>'")
+    sv.add_argument("--timeout", type=float, default=120.0,
+                    help="per-request engine wait bound (504 past it)")
+    sv.add_argument("--max-queue", type=int, default=256,
+                    help="shed load with 429 when this many requests queue")
+    sv.add_argument("--autoscale", action="store_true",
+                    help="warm larger batch buckets when demand saturates "
+                         "the current largest")
+    _common(sv)
+    sv.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,11 +5,14 @@ Its public methods take and return the JAX package's NHWC layout, so a
 test compares like with like.  ``content_style_transfer`` is the SDEdit
 product path: encode content, noise it to t = N-1 with per-item noise,
 walk the grid with DDIM or DPM-Solver++(2M) conditioned on the style
-pyramid, decode.
+pyramid, decode.  ``style_ddim_sample`` generates from noise instead.
+``load_ldm`` builds the model from a checkpoint of the port
+(``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -18,7 +21,7 @@ from torch import nn
 
 from music_style_transfer_ldm_tpu_torch.config import Config, default_config
 from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
-    ddim_sample, transfer_time_grid,
+    ddim_sample, generation_time_grid, transfer_time_grid,
 )
 from music_style_transfer_ldm_tpu_torch.diffusion.dpm import dpm_solver_pp_2m
 from music_style_transfer_ldm_tpu_torch.diffusion.schedule import (
@@ -31,6 +34,7 @@ from music_style_transfer_ldm_tpu_torch.models.style_encoder import (
     StyleEncoder,
 )
 from music_style_transfer_ldm_tpu_torch.models.unet import UNet
+from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 
@@ -50,6 +54,7 @@ class LDM(nn.Module):
                  unet_num_filters: int = 64, style_num_filters: int = 64):
         super().__init__()
         self.num_timesteps = num_timesteps
+        self.latent_dim = latent_dim
         self.encoder = SpectrogramEncoder(latent_dim)
         self.decoder = SpectrogramDecoder(latent_dim)
         self.unet = UNet(latent_dim, latent_dim, unet_num_filters)
@@ -75,17 +80,21 @@ class LDM(nn.Module):
 
     # ---- component entry points (NHWC) ----------------------------------
 
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC input -> NCHW on the model's device, in its dtype."""
+        return _nchw(x).to(device=self.device, dtype=self.dtype)
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """[B, 128, 128, 1] -> [B, 16, 16, latent_dim], model dtype."""
-        return _nhwc(self.encoder(_nchw(x).to(self.dtype)))
+        return _nhwc(self.encoder(self._in(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[B, 16, 16, latent_dim] -> [B, 128, 128, 1] in [-1, 1]."""
-        return _nhwc(self.decoder(_nchw(z).to(self.dtype)))
+        return _nhwc(self.decoder(self._in(z)))
 
     def style_embed(self, style: torch.Tensor) -> Dict[str, torch.Tensor]:
         """[B, 128, 128, 1] -> {s1..s6} NHWC maps."""
-        emb = self.style_encoder(_nchw(style).to(self.dtype))
+        emb = self.style_encoder(self._in(style))
         return {k: _nhwc(v) for k, v in emb.items()}
 
     def denoise(self, z_t: torch.Tensor, t: torch.Tensor,
@@ -136,6 +145,14 @@ def per_item_noise(seeds, batch: int, shape: Tuple[int, ...],
         g.manual_seed(int(s))
         out.append(torch.randn(shape, generator=g, device=device))
     return torch.stack(out)
+
+
+def seeded_noise(shape: Tuple[int, ...], seed: int, device) -> torch.Tensor:
+    """Standard normal noise of ``shape``, one generator seeded by
+    ``seed``: the draw of generation from noise on both routes."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=g, device=device)
 
 
 def _denoise_fn(ldm: LDM, emb: Dict[str, torch.Tensor],
@@ -205,6 +222,55 @@ def content_style_transfer(ldm: LDM, content: torch.Tensor,
     return decoded, z_t_decoded
 
 
+@torch.no_grad()
+def style_ddim_sample(ldm: LDM, z_shape: Tuple[int, ...],
+                      style: torch.Tensor, timesteps: int = 100,
+                      eta: float = 0.0, sampler: str = "ddim",
+                      guidance: float = 1.0, latent_stats=None,
+                      noise: Optional[torch.Tensor] = None,
+                      seed: int = 0) -> torch.Tensor:
+    """Style-conditioned generation from noise over
+    ``generation_time_grid(T, timesteps)``; returns decoded NHWC images in
+    [0, 1].
+
+    z_shape is NHWC [B, 16, 16, latent_dim].  ``noise`` (NHWC) is the
+    draw as given; otherwise one generator seeded by ``seed`` draws it.
+    latent_stats=(mu, sigma), each [latent_dim], moment-matches z_T to the
+    schedule's marginal q(z_T) = N(sqrt(ab) mu, ab sigma^2 + 1 - ab) at
+    t = T-1 (``corpus_latent_stats``) instead of N(0, I).  sampler
+    'dpm++' runs DPM-Solver++(2M) on the same grid; guidance != 1 applies
+    classifier-free style guidance."""
+    dev = ldm.device
+    if noise is None:
+        noise = seeded_noise(z_shape, seed, dev)
+    eps = noise.to(device=dev, dtype=torch.float32)
+    if latent_stats is not None:
+        mu, sigma = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for v in latent_stats)
+        ab = ldm.schedule.alpha_bars[ldm.num_timesteps - 1]
+        eps = torch.sqrt(ab) * mu + torch.sqrt(ab * sigma * sigma
+                                               + (1.0 - ab)) * eps
+    emb = ldm.style_encoder(_nchw(style.to(dev)).to(ldm.dtype))
+    times = generation_time_grid(ldm.num_timesteps, timesteps)
+    sampled = _run_sampler(sampler, _denoise_fn(ldm, emb, guidance),
+                           ldm.schedule, _nchw(eps), times, eta)
+    return ldm.decode_unit(sampled)
+
+
+@torch.no_grad()
+def corpus_latent_stats(ldm: LDM, images, batch: int = 64
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mu, sigma) of the encoder's latents over [N, H, W, 1]
+    images in [0, 1]: the inputs of moment-matched generation."""
+    zs = []
+    for s in range(0, len(images), batch):
+        x = torch.as_tensor(np.asarray(images[s:s + batch], np.float32))
+        zs.append(ldm.encode(x.to(ldm.device)).float().cpu().numpy())
+    z = np.concatenate(zs).astype(np.float64)
+    return (torch.as_tensor(z.mean(axis=(0, 1, 2)), dtype=torch.float32),
+            torch.as_tensor(z.std(axis=(0, 1, 2)), dtype=torch.float32))
+
+
 def match_moments(imgs: torch.Tensor, reference: torch.Tensor,
                   clip: Tuple[float, float] = (0.0, 1.0)) -> torch.Tensor:
     """Per-item affine level/contrast correction toward a reference:
@@ -218,12 +284,7 @@ def match_moments(imgs: torch.Tensor, reference: torch.Tensor,
     return torch.clamp(out, clip[0], clip[1])
 
 
-def build_ldm(config: Optional[Config] = None, dtype=torch.float32,
-              device="cuda", seed: int = 0) -> LDM:
-    """A randomly initialised LDM (weights from ``seed``) in eval mode on
-    ``device``; no checkpoint is involved."""
-    device = resolve_device(device)
-    config = config or default_config()
+def _new_ldm(config: Config, seed: int) -> LDM:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = LDM(latent_dim=config.model.latent_dim,
@@ -233,4 +294,51 @@ def build_ldm(config: Optional[Config] = None, dtype=torch.float32,
                     unet_num_filters=config.model.unet_num_filters,
                     style_num_filters=config.model.style_num_filters)
     model.requires_grad_(False)
+    return model
+
+
+def build_ldm(config: Optional[Config] = None, dtype=torch.float32,
+              device="cuda", seed: int = 0) -> LDM:
+    """A randomly initialised LDM (weights from ``seed``) in eval mode on
+    ``device``; no checkpoint is involved."""
+    device = resolve_device(device)
+    model = _new_ldm(config or default_config(), seed)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def checkpoint_distill_meta(full_checkpoint) -> Optional[dict]:
+    """The ``distill`` metadata a progressively distilled checkpoint
+    carries ({"steps", "t_max", "stages", "guidance"}), or None for a
+    stock checkpoint or an unreadable path (advisory callers only; load
+    errors surface through ``load_ldm``)."""
+    try:
+        payload = ckpt_lib.load_checkpoint(full_checkpoint)
+    except (OSError, ValueError, RuntimeError, pickle.UnpicklingError):
+        return None
+    meta = payload.get("distill")
+    return dict(meta) if isinstance(meta, dict) else None
+
+
+def load_ldm(config: Optional[Config] = None,
+             full_checkpoint: Optional[str] = None, use_ema: bool = True,
+             dtype=torch.bfloat16, device="cuda") -> LDM:
+    """An LDM in eval mode on ``device``, from a checkpoint of the port.
+
+    A checkpoint that carries EMA weights gives those (the sampling
+    convention) unless use_ema=False.  Without a checkpoint the weights
+    are the seed-0 initialisation."""
+    device = resolve_device(device)
+    model = _new_ldm(config or default_config(), seed=0)
+    if full_checkpoint is not None:
+        payload = ckpt_lib.load_checkpoint(full_checkpoint)
+        model.load_state_dict(payload["params"])
+        if use_ema and payload.get("ema_params") is not None:
+            # EMA covers the parameters; BatchNorm statistics stay.
+            _, unexpected = model.load_state_dict(
+                payload["ema_params"], strict=False)
+            if unexpected:
+                raise ValueError(f"ema_params has unknown keys "
+                                 f"{unexpected[:3]}")
+            print("load_ldm: using EMA weights (pass use_ema=False for "
+                  "raw)", flush=True)
     return model.to(device=device, dtype=dtype).eval()

@@ -26,13 +26,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -40,11 +34,13 @@ import torch
 import torch.nn.functional as F
 
 from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
-    transfer_time_grid,
+    generation_time_grid, transfer_time_grid,
 )
 from music_style_transfer_ldm_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
 )
+from music_style_transfer_ldm_tpu_torch.models.ldm import seeded_noise
+from music_style_transfer_ldm_tpu_torch.ops._build import build_library
 
 _H = 16
 _LAT = 32
@@ -62,17 +58,6 @@ _OUT_HW = (16, 8, 4, 2, 2, 4, 8, 16, 16)
 # Largest batch the kernel takes: one block per element, and the JAX
 # package's limit, so both route the same buckets.
 FUSED_MAX_BATCH = 8
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_sampler.cu"
-
-
-def _build_dir() -> Path:
-    """Where built kernels go: MSTLDM_KERNEL_BUILD_DIR, else build/kernels
-    at the root of the checkout (listed in .gitignore)."""
-    return Path(os.environ.get(
-        "MSTLDM_KERNEL_BUILD_DIR",
-        Path(__file__).resolve().parents[2] / "build" / "kernels"))
-
 
 @dataclasses.dataclass
 class FusedOperands:
@@ -269,42 +254,10 @@ class _SamplerArgs(ctypes.Structure):
                 ("batch", ctypes.c_int)]
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the fused sampler kernel is "
-                           "built on a machine with the CUDA toolkit")
-    return found
-
-
 def build_fused_sampler() -> dict:
-    """Compile csrc/fused_sampler.cu for sm_90a into a shared library
-    (cached by source hash).  Returns {'path', 'seconds', 'log'}; 'log'
-    holds ptxas's register and spill report of a fresh build."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    build_dir = _build_dir()
-    build_dir.mkdir(parents=True, exist_ok=True)
-    lib = build_dir / f"libfused_sampler_{tag}.so"
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "log": "(cached)"}
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    """Compile csrc/fused_sampler.cu (ops/_build.py).  Returns {'path',
+    'seconds', 'log'}."""
+    return build_library("fused_sampler.cu")
 
 
 @functools.cache
@@ -407,6 +360,37 @@ def trajectory_cost(ops: FusedOperands, n_steps: int) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     nbytes += 2 * ops.batch * _H * _H * _LAT * 4
     return {"flops": 2 * macs * n_steps * ops.batch, "bytes": nbytes}
+
+
+@torch.no_grad()
+def fused_style_sample(ldm, z_shape, style: torch.Tensor,
+                       timesteps: int = 100, eta: float = 0.0,
+                       sampler: str = "ddim",
+                       noise: torch.Tensor | None = None,
+                       seed: int = 0) -> torch.Tensor:
+    """Style-conditioned generation from noise with the whole trajectory
+    as one kernel launch: the grid and update of
+    ``models.ldm.style_ddim_sample`` (``generation_time_grid``).
+
+    z_shape is NHWC [B, 16, 16, 32], B <= FUSED_MAX_BATCH; style is NHWC
+    [1 or B, 128, 128, 1].  ``noise`` (NHWC) is the draw as given;
+    otherwise one generator seeded by ``seed`` draws it.  Returns decoded
+    images in [0, 1], NHWC f32."""
+    if z_shape[0] > FUSED_MAX_BATCH:
+        raise ValueError(f"fused sampler packs at most B={FUSED_MAX_BATCH}"
+                         f"; got batch {z_shape[0]} — use the scan "
+                         "samplers (models/ldm.py) for larger batches")
+    dev = ldm.device
+    if noise is None:
+        noise = seeded_noise(z_shape, seed, dev)
+    times = generation_time_grid(ldm.num_timesteps, timesteps)
+    ops = pack_operands(ldm.unet, ldm.style_embed(style.to(dev)),
+                        ldm.schedule, times, eta, sampler=sampler,
+                        batch=z_shape[0])
+    sampled = fused_ddim_sample(ops, noise.to(device=dev,
+                                              dtype=torch.float32),
+                                len(times) - 1)
+    return ldm.decode_unit(sampled.permute(0, 3, 1, 2))
 
 
 @torch.no_grad()

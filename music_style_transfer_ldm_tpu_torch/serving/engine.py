@@ -10,6 +10,14 @@
   its result does not depend on how requests were grouped.
 * ``_finish_outputs`` inverts the decoded images to audio on the device:
   dB -> power -> NNLS -> Griffin-Lim.
+* ``ap`` is the engine's AudioProcessor, on its device: WAV requests
+  become images there through kernel C (``ops/fused_mel_image.py``).
+* ``generate`` is generation from noise (the scan DDIM, so kernel B),
+  synchronous behind a lock that it waits for at most ``timeout`` s; its
+  calls and waiters show in ``stats()``, and waiters count as pending
+  load.
+* With ``autoscale``, a 2x bucket is warmed on a side thread once the
+  largest bucket keeps saturating while requests still queue.
 """
 
 from __future__ import annotations
@@ -25,12 +33,15 @@ import torch
 
 from music_style_transfer_ldm_tpu_torch.audio.griffinlim import mel_to_audio
 from music_style_transfer_ldm_tpu_torch.audio.mel import db_to_power
+from music_style_transfer_ldm_tpu_torch.audio.processor import (
+    AudioProcessor,
+)
 from music_style_transfer_ldm_tpu_torch.audio.quantize import (
     unit_image_to_db,
 )
 from music_style_transfer_ldm_tpu_torch.config import AudioConfig
 from music_style_transfer_ldm_tpu_torch.models.ldm import (
-    match_moments, transfer_decoded,
+    match_moments, style_ddim_sample, transfer_decoded,
 )
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
     fused_content_style_transfer,
@@ -61,6 +72,16 @@ class EngineConfig:
     griffin_lim_iters: int = 32
     nnls_iters: int = 64
     invert_audio: bool = True
+    # Bucket autoscaling: after ``autoscale_after`` consecutive dispatches
+    # that fill the largest warm bucket while requests still queue, a 2x
+    # bucket is warmed on a side thread and adopted, up to max_bucket.
+    autoscale: bool = False
+    autoscale_after: int = 4
+    max_bucket: int = 128
+    # Generation from noise (POST /v1/generate): its own grid and
+    # guidance.  generate_steps None = reuse ``steps``.
+    generate_steps: Optional[int] = None
+    generate_guidance: float = 1.0
 
 
 class InferenceEngine:
@@ -83,11 +104,20 @@ class InferenceEngine:
                                  else fused_bucket_max())
         self.audio = audio or AudioConfig()
         self.device = ldm.device
+        self.ap = AudioProcessor(self.audio.sample_rate, self.audio.n_fft,
+                                 self.audio.hop_length,
+                                 nnls_iters=self.config.nnls_iters,
+                                 device=self.device)
         self._queue: queue.Queue = queue.Queue()
-        self._stats = {"requests": 0, "batches": 0, "padded_slots": 0}
+        self._stats = {"requests": 0, "batches": 0, "padded_slots": 0,
+                       "autoscaled_buckets": 0, "generate_calls": 0,
+                       "generate_waiting": 0}
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
         self._warm_buckets: frozenset = frozenset()
+        self._warming: set = set()
+        self._saturated = 0
+        self._gen_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
 
     # ---------------- the transfer program -----------------------------
@@ -132,13 +162,35 @@ class InferenceEngine:
                 nnls_iters=cfg.nnls_iters, length=int(3 * a.sample_rate))
         return out
 
+    @torch.no_grad()
+    def _generate(self, style: torch.Tensor, seed: int) -> dict:
+        cfg = self.config
+        sampler = ("ddim" if cfg.sampler in ("fused", "fused-dpm++")
+                   else cfg.sampler)
+        lat = cfg.image_size // 8
+        decoded = style_ddim_sample(
+            self.ldm, (style.shape[0], lat, lat, self.ldm.latent_dim),
+            style, timesteps=(cfg.generate_steps
+                              if cfg.generate_steps is not None
+                              else cfg.steps),
+            eta=cfg.eta, sampler=sampler, guidance=cfg.generate_guidance,
+            seed=seed)
+        if cfg.match_level:
+            decoded = match_moments(decoded, style)
+        return self._finish_outputs(decoded)
+
     def warmup(self) -> None:
-        """Run every bucket once (kernel builds, JIT) before traffic."""
+        """Run every route once before traffic, so every kernel is built
+        here and a build error surfaces before a server listens: each
+        transfer bucket, the WAV front end, and the generate route."""
         S = self.config.image_size
         for b in self.config.batch_buckets:
             x = torch.zeros((b, S, S, 1), device=self.device)
             self._transfer(x, x, np.zeros((b,), np.int64))
             self._warm_buckets = self._warm_buckets | {b}
+        self.ap.waveform_batch_to_unit_images(
+            np.zeros((1, int(3 * self.audio.sample_rate)), np.float32))
+        self._generate(torch.zeros((1, S, S, 1), device=self.device), 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -182,6 +234,34 @@ class InferenceEngine:
             self._stats["batches"] += 1
         return {k: v[:b].cpu().numpy() for k, v in out.items()}
 
+    def generate(self, style: np.ndarray, seed: int = 0,
+                 timeout: Optional[float] = None) -> dict:
+        """[B, S, S, 1] style images -> generation from noise:
+        {'image' [B, S, S, 1], 'audio' [B, T]?} as numpy.
+
+        Synchronous and serialised behind a lock; waits for it at most
+        ``timeout`` seconds (None = forever), then raises TimeoutError.
+        Deterministic in (seed, batch size)."""
+        with self._stats_lock:
+            self._stats["generate_waiting"] += 1
+        try:
+            got = self._gen_lock.acquire(
+                timeout=-1 if timeout is None else max(timeout, 0.0))
+        finally:
+            with self._stats_lock:
+                self._stats["generate_waiting"] -= 1
+        if not got:
+            raise TimeoutError(f"generate lock not free within {timeout} s")
+        try:
+            with self._stats_lock:
+                self._stats["generate_calls"] += 1
+            out = self._generate(
+                torch.as_tensor(np.asarray(style, np.float32),
+                                device=self.device), seed)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+        finally:
+            self._gen_lock.release()
+
     # ---------------- async microbatching API ---------------------------
 
     def start(self) -> None:
@@ -209,6 +289,37 @@ class InferenceEngine:
             self._stats["requests"] += 1
         return done
 
+    def _maybe_autoscale(self, batch_len: int, max_b: int) -> None:
+        """Warm a 2x bucket on a side thread when demand keeps filling the
+        largest warm bucket (traffic continues on the warm buckets)."""
+        if not self.config.autoscale:
+            return
+        if batch_len >= max_b and self.pending() > 0:
+            self._saturated += 1
+        else:
+            self._saturated = 0
+        new_b = max_b * 2
+        if (self._saturated < self.config.autoscale_after
+                or new_b > self.config.max_bucket):
+            return
+        with self._stats_lock:
+            if new_b in self._warming or new_b in self._warm_buckets:
+                return
+            self._warming.add(new_b)
+        self._saturated = 0
+
+        def work():
+            S = self.config.image_size
+            x = torch.zeros((new_b, S, S, 1), device=self.device)
+            self._transfer(x, x, np.zeros((new_b,), np.int64))
+            with self._stats_lock:
+                # Rebind, never mutate: the dispatcher reads it unlocked.
+                self._warm_buckets = self._warm_buckets | {new_b}
+                self._warming.discard(new_b)
+                self._stats["autoscaled_buckets"] += 1
+
+        threading.Thread(target=work, daemon=True).start()
+
     def _dispatch_loop(self) -> None:
         wait_s = self.config.max_wait_ms / 1000.0
         while not self._stop.is_set():
@@ -227,6 +338,7 @@ class InferenceEngine:
                     batch.append(self._queue.get(timeout=remaining))
                 except queue.Empty:
                     break
+            self._maybe_autoscale(len(batch), max_b)
             try:
                 content = np.stack([r[0] for r in batch])
                 style = np.stack([r[1] for r in batch])
@@ -246,9 +358,11 @@ class InferenceEngine:
             done.put(RuntimeError("engine stopped"))
 
     def pending(self) -> int:
-        """Requests queued but not yet dispatched."""
-        return self._queue.qsize()
+        """Requests queued but not yet dispatched, plus generate calls
+        waiting for the lock (the load-shedding signal)."""
+        return self._queue.qsize() + self._stats["generate_waiting"]
 
     def stats(self) -> dict:
         with self._stats_lock:
-            return {**self._stats, "pending": self.pending()}
+            stats = dict(self._stats)
+        return {**stats, "pending": self.pending()}

@@ -73,12 +73,18 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
         fused_ddim_update,
     )
+    from music_style_transfer_ldm_tpu_torch.ops.fused_mel_image import (
+        fused_mel_unit_image,
+    )
     x = torch.zeros(1, 16, 16, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         fused_ddim_update(x, x, 0.5, 0.6)
     ops = fs.FusedOperands([], [], [], x, x, torch.float32, 1)
     with pytest.raises(RuntimeError, match="no kernel"):
         fs.fused_ddim_sample(ops, x, 1)
+    fb = torch.zeros(128, 1025, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_mel_unit_image(fb, torch.zeros(1, 1025, 130, device="meta"))
 
 
 def test_chip_smoke_fails_without_a_card():
