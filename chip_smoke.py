@@ -5,10 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA card is required (there is no CPU path);
-  2. build: nvcc compiles the fused-trajectory kernel (A) and the mel
-     front-end kernel (C), both CUDA C++ for sm_90a, in parallel, while
-     Triton compiles the DDIM update kernel (B);
-  3. every kernel against its plain PyTorch version at the main path's
+  2. build: nvcc compiles the fused-trajectory kernel (A), the mel
+     front-end kernel (C), the normalized-MSE layer (D) and the VGGish
+     trunk (E), all CUDA C++ for sm_90a, in parallel, while Triton
+     compiles the DDIM update kernel (B);
+  3. every kernel against its plain PyTorch version at the main paths'
      shapes, with the tolerances stated below;
   4. the image-level path: SDEdit transfer served by the InferenceEngine
      at full width (random weights from seed 0, bf16), on the fused route
@@ -19,8 +20,16 @@ Phases, in order; any failure exits non-zero:
      generate``, and the HTTP server on an ephemeral localhost port
      answering /v1/transfer (WAV content) and /v1/generate, with the
      launch counts of all three kernels read around it;
-  6. times with CUDA events (host clock for the CLI and HTTP), each
-     printed with the card's name and power limit.
+  6. the training path: ``cli generate-pairings`` and ``cli train
+     --model ldm --epochs 1`` at full width (two steps at B=128, bf16,
+     defaults) on seeded PNGs, three steps with the style gradient on and
+     VGGish as the compression metric, and ``cli transfer`` from the
+     trained checkpoint, with the launch counts of all five kernels read
+     around it; then one f32 step at B=8 through the kernels against the
+     same step through the plain versions;
+  7. times with CUDA events (host clock for the CLI, HTTP and training
+     steps), each printed with the card's name and power limit, and a
+     profile of one training step.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import io
 import json
 import subprocess
@@ -47,6 +57,30 @@ TOL_GROUPING = 1e-4     # f32 engine: one request alone vs inside a batch
 TOL_KERNEL_C = 1.0 / 255.0 + 1e-6
 TOL_KERNEL_C_FLIPS = 1e-3   # share of elements one grid step apart
 TOL_GRID = 1e-4             # |255 x - round(255 x)| of every output
+# Kernel D (f32) vs plain: m and the loss to 1e-5; dp, dt to the JAX
+# suite's rtol 1e-4 / atol 1e-7; dw to atol 1e-6.  bf16 loss to 1e-3.
+TOL_D_VALUE, TOL_D_GRAD, ATOL_D_GRAD, ATOL_D_DW = 1e-5, 1e-4, 1e-7, 1e-6
+TOL_D_BF16 = 1e-3
+# Kernel E (f32) vs plain: the value to 1e-5; the pred gradient's max
+# abs error below 1e-4 of its max where both versions pool alike (an
+# integer-valued trunk: every conv output is exact in f32, so the maps
+# are bit-identical); on a random trunk a near-tie in a 2x2 max-pool can
+# route a gradient to another pixel (the two sum in other orders), so
+# there the relative L2 error is held to 1e-3.
+TOL_E_VALUE, TOL_E_GRAD_OF_MAX, TOL_E_REL_L2 = 1e-5, 1e-4, 1e-3
+# bf16: E's gradient as close to the f32 oracle as the plain bf16
+# version's (2x) or 5 %, the value within 2 %.
+TOL_E_BF16_FLOOR, TOL_E_BF16_VALUE = 0.05, 0.02
+# One f32 training step through the kernels vs through the plain
+# versions: losses to 1e-5, each parameter gradient to 1e-4 of its max.
+# Both run with cuDNN's deterministic algorithms: the atomics of the
+# others add run-to-run noise that the decoder's train-mode BatchNorm
+# amplifies past that bar.  With the style gradient on, the step takes
+# E's pred gradient, whose max-pool near-tie routing differs from the
+# plain trunk's (phase 3 counts the elements that move); summed into the
+# parameter gradients that is 2e-4 to 4e-4 of a gradient's max in runs
+# of this script, so that run is held to 1e-3.
+TOL_STEP_LOSS, TOL_STEP_GRAD, TOL_STEP_GRAD_ROUTED = 1e-5, 1e-4, 1e-3
 
 H100_BF16_FLOPS = 989e12   # dense, tensor cores
 H100_F32_FLOPS = 67e12     # outside the tensor cores
@@ -83,12 +117,18 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.audio.processor import (
         AudioProcessor,
     )
+    from music_style_transfer_ldm_tpu_torch.config import default_config
     from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
         ddim_sample, transfer_time_grid,
+    )
+    from music_style_transfer_ldm_tpu_torch.losses.vggish import (
+        VGGishFeatures,
     )
     from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
     from music_style_transfer_ldm_tpu_torch.ops import fused_mel_image as fm
     from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
+    from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
+    from music_style_transfer_ldm_tpu_torch.ops import normalized_mse as nm
     from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
         ddim_update_reference, fused_ddim_update,
     )
@@ -99,7 +139,12 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.training.checkpoint import (
         save_checkpoint,
     )
-    from music_style_transfer_ldm_tpu_torch.utils.png import read_png_gray
+    from music_style_transfer_ldm_tpu_torch.training.train_ldm import (
+        LDMTrainer,
+    )
+    from music_style_transfer_ldm_tpu_torch.utils.png import (
+        read_png_gray, write_png_gray,
+    )
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -120,7 +165,7 @@ def main() -> int:
     results: dict = {"card": smi, "kind": kind}
 
     # ---- 2. build (one nvcc per source and Triton, all at once) ---------
-    built: dict = {"A": {}, "C": {}}
+    built: dict = {"A": {}, "C": {}, "D": {}, "E": {}}
 
     def nvcc_build(key, fn):
         try:
@@ -130,7 +175,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=nvcc_build, args=a) for a in (
-        ("A", fs.build_fused_sampler), ("C", fm.build_fused_mel_image))]
+        ("A", fs.build_fused_sampler), ("C", fm.build_fused_mel_image),
+        ("D", nm.build_normalized_mse), ("E", ft.build_fused_trunk))]
     for th in threads:
         th.start()
     probe = torch.zeros(8, 16, 16, 32, device=dev)
@@ -139,18 +185,17 @@ def main() -> int:
     triton_s = time.perf_counter() - t0
     for th in threads:
         th.join()
-    for key in ("A", "C"):
+    for key in built:
         if "error" in built[key]:
             fail(f"kernel {key} build: {built[key]['error']}")
         for line in built[key]["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas ({key}):", line.strip())
-    print(f"build: nvcc {built['A']['seconds']:.1f} s (kernel A) and "
-          f"{built['C']['seconds']:.1f} s (kernel C) in parallel, Triton "
-          f"JIT {triton_s:.1f} s (kernel B)")
-    results["build_s"] = {"nvcc_a": built["A"]["seconds"],
-                          "nvcc_c": built["C"]["seconds"],
-                          "triton": triton_s}
+    print("build: nvcc " + ", ".join(
+        f"{built[k]['seconds']:.1f} s (kernel {k})" for k in built)
+        + f" in parallel, Triton JIT {triton_s:.1f} s (kernel B)")
+    results["build_s"] = {**{f"nvcc_{k.lower()}": built[k]["seconds"]
+                             for k in built}, "triton": triton_s}
 
     # ---- 3. kernels against their plain versions -----------------------
     g = torch.Generator(device=dev)
@@ -238,10 +283,145 @@ def main() -> int:
         check(flips <= TOL_KERNEL_C_FLIPS, "kernel C flips too many values")
         err_c, flips_c = max(err_c, err), max(flips_c, flips)
     check(err_c <= TOL_KERNEL_C, "kernel C disagrees with its plain version")
+
+    # kernel D: the six VGGish layer shapes, f32, B=8, one zero weight
+    def excess(got, want, rtol, atol):
+        """max(|got - want| - atol - rtol |want|): <= 0 passes."""
+        return ((got - want).abs() - atol - rtol * want.abs()).max().item()
+
+    w8 = torch.ones(8, device=dev)
+    w8[-1] = 0.0
+    err_d = {"m": 0.0, "loss": 0.0, "abs": 0.0, "grad_excess": -1.0,
+             "dw_excess": -1.0}
+    for h, w_, c in ((128, 128, 64), (64, 64, 128), (32, 32, 256),
+                     (32, 32, 256), (16, 16, 512), (16, 16, 512)):
+        p = torch.relu(torch.randn(8, h, w_, c, device=dev, generator=g))
+        t = torch.relu(torch.randn(8, h, w_, c, device=dev, generator=g))
+        mk, _ = nm.normalized_mse_forward(p, t)
+        mr, _ = nm.normalized_mse_forward_reference(p, t)
+        out = {}
+        for name, fn in (("k", nm.normalized_mse_kernel),
+                         ("r", nm.normalized_mse_reference)):
+            P, T, W = (x.clone().requires_grad_(True) for x in (p, t, w8))
+            loss = fn(P, T, W)
+            loss.backward()
+            out[name] = (loss.detach(), P.grad, T.grad, W.grad)
+        torch.cuda.synchronize()
+        (lk, dpk, dtk, dwk), (lr, dpr, dtr, dwr) = out["k"], out["r"]
+        err_d["m"] = max(err_d["m"], ((mk - mr).abs() / mr.abs()).max().item())
+        err_d["loss"] = max(err_d["loss"], ((lk - lr).abs() / lr).item())
+        err_d["grad_excess"] = max(err_d["grad_excess"], excess(
+            dpk, dpr, TOL_D_GRAD, ATOL_D_GRAD), excess(
+            dtk, dtr, TOL_D_GRAD, ATOL_D_GRAD))
+        err_d["dw_excess"] = max(err_d["dw_excess"],
+                                 excess(dwk, dwr, 0.0, ATOL_D_DW))
+        err_d["abs"] = max(err_d["abs"], (mk - mr).abs().max().item())
+    print(f"kernel D vs plain f32 B=8 at the six VGGish layer shapes: m rel "
+          f"{err_d['m']:.3g}, loss rel {err_d['loss']:.3g} (tol "
+          f"{TOL_D_VALUE}); dp/dt excess over rtol {TOL_D_GRAD} atol "
+          f"{ATOL_D_GRAD}: {err_d['grad_excess']:.3g} (<= 0), dw excess "
+          f"over atol {ATOL_D_DW}: {err_d['dw_excess']:.3g} (<= 0)")
+    check(err_d["m"] <= TOL_D_VALUE and err_d["loss"] <= TOL_D_VALUE,
+          "kernel D's metric disagrees with its plain version")
+    check(err_d["grad_excess"] <= 0.0 and err_d["dw_excess"] <= 0.0,
+          "kernel D's gradients disagree with their plain version")
+    p16 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
+                                 generator=g)).bfloat16()
+    t16 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
+                                 generator=g)).bfloat16()
+    w128 = torch.ones(128, device=dev)
+    lk = nm.normalized_mse_kernel(p16, t16, w128).item()
+    lr = nm.normalized_mse_reference(p16, t16, w128).item()
+    err_d["bf16_loss"] = abs(lk - lr) / lr
+    print(f"kernel D vs plain bf16 B=128 layer 1: loss rel "
+          f"{err_d['bf16_loss']:.3g} (tol {TOL_D_BF16})")
+    check(err_d["bf16_loss"] <= TOL_D_BF16, "kernel D (bf16) disagrees")
+
+    # kernel E: full VGGish widths, 128x128
+    def e_run(mod, fn, pred, targ, w):
+        P = pred.clone().requires_grad_(True)
+        T = targ.clone().requires_grad_(True)
+        loss = fn(mod, P, T, w)
+        loss.backward()
+        return loss.item(), P.grad, T.grad
+
+    torch.manual_seed(3)
+    vgg32 = VGGishFeatures(torch.float32).to(dev)
+    pred8 = torch.rand(8, 128, 128, 1, device=dev, generator=g)
+    targ8 = torch.rand(8, 128, 128, 1, device=dev, generator=g)
+    vk, gk, tk = e_run(vgg32, ft.fused_vggish_distance, pred8, targ8, w8)
+    vr, gr, _ = e_run(vgg32, ft.fused_vggish_distance_reference, pred8,
+                      targ8, w8)
+    vv = ft.fused_vggish_distance_value(vgg32, pred8, targ8, w8).item()
+    err_e = {"value": abs(vk - vr) / vr, "value_abs": abs(vk - vr),
+             "rel_l2": ((gk - gr).norm() / gr.norm()).item(),
+             "of_max": ((gk - gr).abs().max() / gr.abs().max()).item(),
+             "moved": int(((gk - gr).abs() > 1e-4 * gr.abs().max()).sum())}
+    ivgg = VGGishFeatures(torch.float32).to(dev)
+    with torch.no_grad():
+        for conv, _ in ivgg.layers():
+            r = torch.rand(conv.weight.shape, device=dev, generator=g)
+            conv.weight.copy_(torch.where(r < 0.04, 1.0, torch.where(
+                r > 0.96, -1.0, 0.0)))
+            conv.bias.copy_(torch.randint(-1, 3, conv.bias.shape, device=dev,
+                                          generator=g).float())
+    ipred = torch.randint(0, 4, (8, 128, 128, 1), device=dev,
+                          generator=g).float()
+    itarg = torch.randint(0, 4, (8, 128, 128, 1), device=dev,
+                          generator=g).float()
+    ivk, igk, _ = e_run(ivgg, ft.fused_vggish_distance, ipred, itarg, w8)
+    ivr, igr, _ = e_run(ivgg, ft.fused_vggish_distance_reference, ipred,
+                        itarg, w8)
+    err_e["int_value"] = abs(ivk - ivr) / ivr
+    err_e["int_of_max"] = ((igk - igr).abs().max() / igr.abs().max()).item()
+    print(f"kernel E vs plain f32 B=8 128x128 full widths: value rel "
+          f"{err_e['value']:.3g} (value-only variant {vv:.8g} vs "
+          f"{vk:.8g}); random trunk pred-grad rel L2 {err_e['rel_l2']:.3g} "
+          f"(tol {TOL_E_REL_L2}), max abs / max {err_e['of_max']:.3g} with "
+          f"{err_e['moved']} of {gk.numel()} elements beyond 1e-4 of max "
+          f"(pool near-tie routing); integer trunk (exact maps) value rel "
+          f"{err_e['int_value']:.3g}, pred-grad max abs / max "
+          f"{err_e['int_of_max']:.3g} (tol {TOL_E_GRAD_OF_MAX}); zero-weight "
+          f"sample grad {gk[-1].abs().max().item()}, target grad "
+          f"{tk.abs().max().item()}")
+    check(err_e["value"] <= TOL_E_VALUE and err_e["int_value"] <= TOL_E_VALUE
+          and abs(vv - vk) <= TOL_E_VALUE * vk, "kernel E's value disagrees")
+    check(err_e["int_of_max"] <= TOL_E_GRAD_OF_MAX
+          and err_e["rel_l2"] <= TOL_E_REL_L2,
+          "kernel E's pred gradient disagrees with its plain version")
+    check(bool((gk[-1] == 0).all()) and bool((tk == 0).all()),
+          "kernel E: the zero-weight sample and the target must get exactly "
+          "zero gradients")
+    vgg16 = VGGishFeatures(torch.bfloat16).to(dev)
+    vgg16.load_state_dict(vgg32.state_dict())
+    for B in (8, 128):
+        pb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
+        tb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
+        wb = torch.ones(B, device=dev)
+        wb[-1] = 0.0
+        v32, g32, _ = e_run(vgg32, ft.fused_vggish_distance_reference, pb,
+                            tb, wb)
+        vpl, gpl, _ = e_run(vgg16, ft.fused_vggish_distance_reference, pb,
+                            tb, wb)
+        vke, gke, _ = e_run(vgg16, ft.fused_vggish_distance, pb, tb, wb)
+        n32 = g32.norm()
+        plain_err = ((gpl - g32).norm() / n32).item()
+        kern_err = ((gke - g32).norm() / n32).item()
+        bar = max(2.0 * plain_err, TOL_E_BF16_FLOOR)
+        err_e[f"bf16_b{B}"] = kern_err
+        print(f"kernel E bf16 B={B} vs the f32 oracle: pred-grad rel L2 "
+              f"{kern_err:.4g} (plain bf16 {plain_err:.4g}; tol {bar:.4g}), "
+              f"value rel {abs(vke - v32) / v32:.3g} (tol "
+              f"{TOL_E_BF16_VALUE})")
+        check(kern_err <= bar and abs(vke - v32) <= TOL_E_BF16_VALUE * v32,
+              f"kernel E (bf16, B={B}) strays from the f32 oracle")
+        del g32, gpl, gke
     results["max_abs_err"] = {"ddim_update": err_b, "fused_ddim_sample_f32":
                               err_a, "fused_ddim_sample_bf16_decoded":
                               err_a16, "fused_mel_unit_image": err_c,
                               "fused_mel_unit_image_flip_share": flips_c}
+    results["max_abs_err"].update({"normalized_mse": err_d,
+                                   "fused_vggish_distance": err_e})
 
     def reset_counts():
         for fn in counted:
@@ -251,8 +431,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return {fn.__name__: fn.launches for fn in counted}
 
-    counted = (fs.fused_ddim_sample, fused_ddim_update,
+    serving = (fs.fused_ddim_sample, fused_ddim_update,
                fm.fused_mel_unit_image)
+    counted = serving + (nm.normalized_mse_forward,
+                         nm.normalized_mse_backward, ft.fused_trunk)
 
     # ---- 4. the image-level path --------------------------------------
     rng = np.random.RandomState(0)
@@ -378,12 +560,127 @@ def main() -> int:
     wav_launches = read_counts()
     print(f"WAV path: cli transfer {cli_transfer_s:.2f} s, HTTP 200 on "
           f"/v1/transfer x2 and /v1/generate; launches {wav_launches}")
-    for fn in counted:
+    for fn in serving:
         check(wav_launches[fn.__name__] > 0,
               f"{fn.__name__} never ran on the WAV path")
     results["launches"]["wav_path"] = wav_launches
 
-    # ---- 6. times -------------------------------------------------------
+    # ---- 6. the training path ------------------------------------------
+    tdir = work / "train"
+    imgs = tdir / "images"
+    img_rng = np.random.RandomState(1)
+    for label in ("classic", "rock"):
+        (imgs / label).mkdir(parents=True, exist_ok=True)
+        for i in range(16):
+            (imgs / label / f"{i:03d}.png").write_bytes(write_png_gray(
+                img_rng.randint(0, 256, (128, 128)).astype(np.uint8)))
+    pairs_csv = tdir / "pairs.csv"
+    cli.main(["generate-pairings", "--root", str(imgs), "--output",
+              str(pairs_csv), "--num-pairs", "256"])
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "--model", "ldm", "--data-root", str(imgs),
+              "--pairing-file", str(pairs_csv), "--epochs", "1",
+              "--out-dir", str(tdir / "run")])
+    torch.cuda.synchronize()
+    cli_train_s = time.perf_counter() - t0
+    trained = tdir / "run" / "ldm_final.pt"
+    payload = torch.load(trained, map_location="cpu", weights_only=True)
+    rows = (tdir / "run" / "metrics.csv").read_text().splitlines()
+    header, last = rows[0].split(","), rows[-1].split(",")
+    logged = {k: float(v) for k, v in zip(header, last)}
+    print(f"cli train --model ldm --epochs 1 (256 pairs, B=128, bf16): "
+          f"{cli_train_s:.2f} s wall, step {payload['step']}, epoch metrics "
+          f"{ {k: round(v, 5) for k, v in logged.items()} }")
+    check(payload["step"] == 2, f"cli train ran {payload['step']} steps")
+    check(all(np.isfinite(logged[k]) for k in (
+        "total_loss", "compression_loss", "denoising_loss", "style_loss")),
+        "cli train logged a non-finite loss")
+    cfg_v = default_config()
+    cfg_v.train = dataclasses.replace(
+        cfg_v.train, style_loss_stop_gradient=False,
+        compression_feature_extractor="vggish")
+    trainer_v = LDMTrainer(cfg_v)
+    state_v = trainer_v.init_state(0)
+    c128 = torch.rand(128, 128, 128, 1, device=dev, generator=g)
+    s128 = torch.rand(128, 128, 128, 1, device=dev, generator=g)
+    variant_metrics = []
+    for _ in range(3):
+        state_v, m_v = trainer_v._step(state_v, c128, s128)
+        variant_metrics.append({k: v.item() for k, v in m_v.items()})
+    print(f"LDMTrainer, style gradient on, VGGish compression metric, B=128 "
+          f"bf16, 3 steps: {variant_metrics}")
+    check(all(np.isfinite(v) for m in variant_metrics for v in m.values()),
+          "the style-gradient variant gave a non-finite loss")
+    cli.main(["transfer", "--checkpoint", str(trained), "--content",
+              str(content_wav), "--style", str(imgs / "rock" / "000.png"),
+              "--sampler", "fused", "--steps", "50", "--overlap", "0.5",
+              "--output", str(work / "trained_transfer")])
+    png = read_png_gray((work / "trained_transfer.png").read_bytes())
+    sr_out, audio = wavfile.read(work / "trained_transfer.wav")
+    check(png.shape == (128, 128 * n_chunks) and sr_out == 22050
+          and bool(np.isfinite(audio).all()), "transfer from the trained "
+          "checkpoint")
+    train_launches = read_counts()
+    print(f"training path: launches {train_launches}; cli transfer from "
+          f"{trained.name}: PNG {png.shape}, WAV {audio.shape[0]} samples")
+    for fn in counted:
+        if fn is not fused_ddim_update:   # the transfer runs kernel A
+            check(train_launches[fn.__name__] > 0,
+                  f"{fn.__name__} never ran on the training path")
+    results["launches"]["training_path"] = train_launches
+
+    # one f32 step at B=8: through the kernels vs through the plain versions
+    lat = torch.Generator(device=dev)
+    lat.manual_seed(8)
+    c8 = torch.rand(8, 128, 128, 1, device=dev, generator=lat)
+    s8 = torch.rand(8, 128, 128, 1, device=dev, generator=lat)
+    t8 = torch.randint(0, 200, (8,), device=dev, generator=lat)
+    n8 = torch.randn(8, 16, 16, 32, device=dev, generator=lat)
+    err_step = {}
+    torch.backends.cudnn.deterministic = True
+    for tag, over, tol in (
+            ("defaults", {}, TOL_STEP_GRAD),
+            ("vggish-compression", {
+                "compression_feature_extractor": "vggish"}, TOL_STEP_GRAD),
+            ("style-grad+vggish-compression", {
+                "style_loss_stop_gradient": False,
+                "compression_feature_extractor": "vggish"},
+             TOL_STEP_GRAD_ROUTED)):
+        cfg32 = default_config()
+        cfg32.train = dataclasses.replace(cfg32.train,
+                                          compute_dtype="float32", **over)
+        runs = {}
+        for impl in ("auto", "plain"):
+            tr = LDMTrainer(cfg32, feature_impl=impl)
+            st = tr.init_state(0)
+            total, mets = tr._losses(st.model, c8, s8, t8, noise=n8)
+            total.backward()
+            runs[impl] = (mets, {k: p.grad for k, p in
+                                 st.model.named_parameters()
+                                 if p.grad is not None})
+        (mk, gk8), (mr, gr8) = runs["auto"], runs["plain"]
+        loss_err = max(abs(mk[k].item() - mr[k].item()) / abs(mr[k].item())
+                       for k in mr)
+        top = max(v.abs().max().item() for v in gr8.values())
+        grad_err = 0.0
+        for k, v in gr8.items():
+            scale = v.abs().max().item()
+            if scale < 1e-5 * top:   # a bias feeding a train-mode BN: 0
+                continue
+            grad_err = max(grad_err,
+                           (gk8[k] - v).abs().max().item() / scale)
+        err_step[tag] = {"loss": loss_err, "grad_of_max": grad_err}
+        print(f"f32 step B=8 ({tag}): kernels vs plain versions, losses rel "
+              f"{loss_err:.3g} (tol {TOL_STEP_LOSS}), parameter gradients "
+              f"max abs / max {grad_err:.3g} (tol {tol})")
+        check(loss_err <= TOL_STEP_LOSS and grad_err <= tol,
+              f"the f32 training step ({tag}) through the kernels disagrees "
+              "with the plain versions")
+    torch.backends.cudnn.deterministic = False
+    results["max_abs_err"]["f32_step"] = err_step
+
+    # ---- 7. times -------------------------------------------------------
     def cuda_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -469,6 +766,111 @@ def main() -> int:
           f"steps): {http_s['transfer'][0]:.3f} s first, "
           f"{http_s['transfer'][1]:.3f} s second; /v1/generate (scan DDIM, "
           f"50 steps): {http_s['generate'][0]:.3f} s")
+    # kernel D: layer 1 of VGGish, bf16, B=128 (p16, t16 from phase 3)
+    kd_ms = cuda_ms(lambda: nm.normalized_mse_forward(p16, t16), 20)
+    pd_ms = cuda_ms(lambda: nm.normalized_mse_forward_reference(p16, t16), 5)
+    _, st16 = nm.normalized_mse_forward(p16, t16)
+    us16 = torch.full((128,), 1.0 / 128, device=dev)
+    kdb_ms = cuda_ms(lambda: nm.normalized_mse_backward(
+        p16, t16, st16, us16, False), 20)
+    pdb_ms = cuda_ms(lambda: nm.normalized_mse_backward_reference(
+        p16, t16, st16, us16, False), 5)
+    cost = nm.normalized_mse_cost(128, p16[0].numel(), 2)
+    bound_d = {"bytes": cost["bytes"] / H100_BYTES,
+               "operations": cost["flops"] / H100_F32_FLOPS}
+    bound_d_ms = 1e3 * max(bound_d.values())
+    bound_d_by = max(bound_d, key=bound_d.get)
+    print(f"time {card} kernel D [128,128,128,64] bf16: forward "
+          f"{kd_ms:.3f} ms/call, plain version {pd_ms:.3f} ms; backward (dp) "
+          f"{kdb_ms:.3f} ms, plain {pdb_ms:.3f} ms; forward bound "
+          f"{bound_d_ms:.4f} ms ({bound_d_by}: {cost['bytes'] / 1e6:.1f} MB)")
+    times.update({"kernel_d_ms": kd_ms, "plain_d_ms": pd_ms,
+                  "kernel_d_bwd_ms": kdb_ms, "plain_d_bwd_ms": pdb_ms,
+                  "bound_d_ms": bound_d_ms, "bound_d_by": bound_d_by})
+    del p16, t16
+    # kernel E: the trunk from f1, bf16, B=8 and B=128
+    times.update({"kernel_e_ms": {}, "plain_e_ms": {}, "bound_e_ms": {}})
+    for B in (8, 128):
+        pb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
+        f1 = ft.conv1_both(vgg16, pb, pb.flip(0))
+        for grad in (False, True):
+            key = f"{'grad' if grad else 'value'}_b{B}"
+            times["kernel_e_ms"][key] = cuda_ms(
+                lambda: ft.fused_trunk(vgg16, f1, grad), 5)
+            times["plain_e_ms"][key] = cuda_ms(
+                lambda: ft.fused_trunk_reference(vgg16, f1, grad), 3)
+            cost = ft.trunk_cost(vgg16, B, 128, 128, 2, grad)
+            times["bound_e_ms"][key] = 1e3 * max(
+                cost["flops"] / H100_BF16_FLOPS, cost["bytes"] / H100_BYTES)
+            print(f"time {card} kernel E {'with grad' if grad else 'value'} "
+                  f"B={B} bf16 128x128: {times['kernel_e_ms'][key]:.3f} "
+                  f"ms/call, plain version {times['plain_e_ms'][key]:.3f} "
+                  f"ms, bound {times['bound_e_ms'][key]:.4f} ms (operations: "
+                  f"{cost['flops'] / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+        del f1
+    # the training step at B=128, bf16, defaults
+    trainer_t = LDMTrainer(default_config())
+    state_t = trainer_t.init_state(0)
+    state_t, _ = trainer_t._step(state_t, c128, s128)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 5
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state_t, _ = trainer_t._step(state_t, c128, s128)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    step_mem = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state_v, _ = trainer_v._step(state_v, c128, s128)
+    torch.cuda.synchronize()
+    step_v_ms = 1e3 * (time.perf_counter() - t0) / 3
+    print(f"time {card} training step B=128 bf16 (defaults: E value-only "
+          f"style term, LPIPS compression): {step_ms:.1f} ms/step, "
+          f"{1e3 / step_ms:.2f} steps/s, peak memory {step_mem:.0f} MiB; "
+          f"style gradient on + VGGish compression (E with grad, D layer "
+          f"route): {step_v_ms:.1f} ms/step")
+    times.update({"train_step_ms": step_ms, "train_steps_per_s":
+                  1e3 / step_ms, "train_step_peak_mib": step_mem,
+                  "train_step_variant_ms": step_v_ms,
+                  "cli_train_s": cli_train_s})
+    # where one default step's device time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state_t, _ = trainer_t._step(state_t, c128, s128)
+        torch.cuda.synchronize()
+    groups = {"E (trunk kernels)": ("conv3x3_kernel", "maxpool2_kernel",
+                                    "unpool2_kernel"),
+              "D (normalized MSE)": ("nm_",)}
+    by_group: dict = {}
+    device_total = 0.0
+    kernels_us = []
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue      # host-side ops; their kernels are listed apart
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us <= 0:
+            continue
+        device_total += dev_us
+        kernels_us.append((dev_us, evt.key))
+        name = next((gname for gname, keys in groups.items()
+                     if any(k in evt.key for k in keys)), "other")
+        by_group[name] = by_group.get(name, 0.0) + dev_us
+    kernels_us.sort(reverse=True)
+    print(f"profile {card} one training step B=128 bf16: device time "
+          f"{device_total / 1e3:.2f} ms; by group (ms) "
+          f"{ {k: round(v / 1e3, 2) for k, v in by_group.items()} }; top "
+          f"kernels (ms) "
+          f"{[(k[:60], round(v / 1e3, 2)) for v, k in kernels_us[:8]]}")
+    times["train_step_profile"] = {"device_ms": device_total / 1e3,
+                                   "groups_ms": {k: v / 1e3 for k, v in
+                                                 by_group.items()},
+                                   "top_kernels_ms": [
+                                       (k, v / 1e3) for v, k in
+                                       kernels_us[:12]]}
     mem = torch.cuda.max_memory_allocated() / 2**20
     print(f"memory {card} max_memory_allocated {mem:.1f} MiB")
     times.update({"kernel_b_ms": kb_ms, "plain_b_ms": pb_ms,
@@ -501,16 +903,39 @@ def main() -> int:
          "plain_ms": times["plain_c_ms"][1],
          "bound_ms": times["bound_c_ms"][1], "bound_by": times["bound_c_by"][1],
          "library_ms": None},
+        {"name": "normalized_mse", "route": "cuda",
+         "source": "music_style_transfer_ldm_tpu_torch/csrc/normalized_mse.cu",
+         "replaces": "music_style_transfer_ldm_tpu/ops/pallas/"
+                     "normalized_mse.py:92",
+         "launches": (train_launches["normalized_mse_forward"]
+                      + train_launches["normalized_mse_backward"]),
+         "max_abs_err": err_d["abs"], "ms": kd_ms, "plain_ms": pd_ms,
+         "bound_ms": bound_d_ms, "bound_by": bound_d_by, "library_ms": None},
+        {"name": "fused_vggish_distance", "route": "cuda",
+         "source": "music_style_transfer_ldm_tpu_torch/csrc/fused_trunk.cu",
+         "replaces": "music_style_transfer_ldm_tpu/ops/pallas/"
+                     "fused_trunk.py:549",
+         "launches": train_launches["fused_trunk"],
+         "max_abs_err": err_e["value_abs"],
+         "ms": times["kernel_e_ms"]["value_b128"],
+         "plain_ms": times["plain_e_ms"]["value_b128"],
+         "bound_ms": times["bound_e_ms"]["value_b128"],
+         "bound_by": "operations", "library_ms": None},
     ]
+    by_path = {"normalized_mse": ("normalized_mse_forward",
+                                  "normalized_mse_backward"),
+               "fused_vggish_distance": ("fused_trunk",)}
     for k in kernels:
-        k["launches_by_path"] = {p: n[k["name"]] for p, n in
-                                 results["launches"].items()}
+        names = by_path.get(k["name"], (k["name"],))
+        k["launches_by_path"] = {p: sum(n[x] for x in names)
+                                 for p, n in results["launches"].items()}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**results, "kernels": kernels}, f, indent=1)
     print("library call: none (no single PyTorch call computes any of the "
-          "three functions); kernel times at B=1 in the line below, the "
-          "scan route and B=8 beside them above")
+          "five functions); kernel times in the line below: A and C at B=1, "
+          "B at [8,16,16,32], D's forward at layer 1 bf16 B=128, E's value "
+          "at bf16 B=128; the other shapes beside them above")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,15 @@
   python -m music_style_transfer_ldm_tpu_torch.cli generate \\
       --checkpoint ckpt.pt --style s.png
   python -m music_style_transfer_ldm_tpu_torch.cli serve --checkpoint ckpt.pt
+  python -m music_style_transfer_ldm_tpu_torch.cli generate-pairings \\
+      --root images/ --output pairs.csv
+  python -m music_style_transfer_ldm_tpu_torch.cli train --model ldm \\
+      --data-root images/ --pairing-file pairs.csv --epochs N --out-dir runs/
 
-Checkpoints are the port's own format (``training/checkpoint.py``).
-Everything runs on the card; ``--device cpu`` runs the plain PyTorch
-versions of the kernels on the CPU instead (the tests use it).
+Checkpoints are the port's own format (``training/checkpoint.py``);
+``train`` writes ``ldm_final.pt``, which ``transfer`` and ``generate``
+read.  Everything runs on the card; ``--device cpu`` runs the plain
+PyTorch versions of the kernels on the CPU instead (the tests use it).
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ from music_style_transfer_ldm_tpu_torch.audio.stft import stft_np
 from music_style_transfer_ldm_tpu_torch.config import default_config
 from music_style_transfer_ldm_tpu_torch.data.build_dataset import chunk_audio
 from music_style_transfer_ldm_tpu_torch.datasets.folder import (
-    load_image_unit,
+    SpectrogramPairDataset, generate_pairings, load_image_unit,
 )
+from music_style_transfer_ldm_tpu_torch.datasets.loader import BatchLoader
 from music_style_transfer_ldm_tpu_torch.models.ldm import (
     checkpoint_distill_meta, content_style_transfer, load_ldm,
     match_moments, style_ddim_sample,
@@ -45,6 +51,7 @@ from music_style_transfer_ldm_tpu_torch.serving.engine import (
     EngineConfig, InferenceEngine,
 )
 from music_style_transfer_ldm_tpu_torch.serving.server import serve
+from music_style_transfer_ldm_tpu_torch.training.train_ldm import LDMTrainer
 from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
 from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
 
@@ -325,6 +332,44 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_generate_pairings(args) -> int:
+    generate_pairings(args.root, args.output, num_pairs=args.num_pairs,
+                      seed=args.seed)
+    print(f"pairings saved to {args.output}")
+    return 0
+
+
+def cmd_train(args) -> int:
+    """LDM training on a pairings CSV over an image folder; checkpoints
+    under --out-dir (``ldm_final.pt`` at the end)."""
+    if args.model != "ldm":
+        raise SystemExit("train --model autoencoder is not ported yet; "
+                         "the port trains the LDM (--model ldm)")
+    for flag, value in (("--pretrained-ae", args.pretrained_ae),
+                        ("--style-features", args.style_features),
+                        ("--compression-features",
+                         args.compression_features)):
+        if value:
+            raise SystemExit(f"train {flag} is not ported yet (it reads "
+                             "the JAX package's orbax checkpoints)")
+    cfg = default_config()
+    overrides = {"num_epochs": args.epochs, "learning_rate": args.lr,
+                 "style_dropout": args.style_dropout or None,
+                 "ema_decay": args.ema_decay or None}
+    cfg.train = dataclasses.replace(cfg.train, **{
+        k: v for k, v in overrides.items() if v is not None})
+    root = args.data_root or cfg.data.processed_dir
+    pairs = SpectrogramPairDataset(root, args.pairing_file
+                                   or cfg.data.pairing_file)
+    loader = BatchLoader(pairs, cfg.train.batch_size, shuffle=True,
+                         seed=cfg.train.seed)
+    trainer = LDMTrainer(cfg, device=args.device)
+    trainer.train(loader, out_dir=args.out_dir, resume_from=args.resume_from)
+    print(f"trained {len(loader)} steps per epoch; checkpoints under "
+          f"{args.out_dir}", flush=True)
+    return 0
+
+
 def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
@@ -420,6 +465,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "the current largest")
     _common(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    g = sub.add_parser("generate-pairings", help="deterministic pair CSV")
+    g.add_argument("--root", default="processed_images")
+    g.add_argument("--output", default="spectrogram_pair_dataset_pairings.csv")
+    g.add_argument("--num-pairs", type=int, default=15000)
+    g.add_argument("--seed", type=int, default=42)
+    g.set_defaults(fn=cmd_generate_pairings)
+
+    t = sub.add_parser("train", help="train the ldm")
+    t.add_argument("--model", required=True, choices=["autoencoder", "ldm"],
+                   help="'ldm' (the autoencoder phase is not ported yet)")
+    t.add_argument("--data-root")
+    t.add_argument("--pairing-file")
+    t.add_argument("--pretrained-ae",
+                   help="autoencoder checkpoint to load and freeze (not "
+                        "ported yet)")
+    t.add_argument("--epochs", type=int)
+    t.add_argument("--lr", type=float, default=None,
+                   help="override the initial learning rate")
+    t.add_argument("--style-dropout", type=float, default=0.0,
+                   help="per-sample probability of zeroing the style "
+                        "embedding (classifier-free-guidance training)")
+    t.add_argument("--ema-decay", type=float, default=0.0,
+                   help="track an EMA of the weights (0.999 typical; 0 = "
+                        "off); inference then prefers it")
+    t.add_argument("--style-features",
+                   help="transplanted VGGish weights (not ported yet)")
+    t.add_argument("--compression-features",
+                   help="transplanted LPIPS weights (not ported yet)")
+    t.add_argument("--out-dir", default="runs/train")
+    t.add_argument("--resume-from",
+                   help="train-state checkpoint to resume from")
+    t.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "PyTorch versions in f32 (tests)")
+    t.set_defaults(fn=cmd_train)
     return p
 
 

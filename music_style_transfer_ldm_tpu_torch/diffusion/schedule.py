@@ -41,3 +41,9 @@ class DiffusionSchedule:
         """sqrt(ab_t) x0 + sqrt(1 - ab_t) eps."""
         ab = self._gather(t, x0.ndim)
         return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * eps
+
+    def predict_start_from_noise(self, z_t: torch.Tensor, t: torch.Tensor,
+                                 noise_pred: torch.Tensor) -> torch.Tensor:
+        """x0_hat = (z_t - sqrt(1 - ab_t) eps_hat) / sqrt(ab_t)."""
+        ab = self._gather(t, z_t.ndim)
+        return (z_t - torch.sqrt(1.0 - ab) * noise_pred) / torch.sqrt(ab)

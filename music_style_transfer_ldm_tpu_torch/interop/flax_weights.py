@@ -13,7 +13,11 @@ JAX import is needed here.  Mappings:
 * BatchNorm     scale/bias, mean/var  -> weight/bias,
                 running_mean/running_var
 
-``export_flax_variables`` is the inverse.
+``export_flax_variables`` is the inverse.  ``load_flax_convs`` and
+``export_flax_convs`` do the same for a frozen feature network (the
+VGGish trunk, ``{conv1..conv4_2: kernel, bias}``; LPIPS,
+``{alex: {conv1..conv5}, lin0..lin4}``): every Conv2d of the module at
+its dotted name's path in the tree.
 """
 
 from __future__ import annotations
@@ -119,3 +123,33 @@ def export_flax_variables(ldm) -> Dict[str, Any]:
                  {"kernel": _conv_to_flax(np32(mod.weight), transpose),
                   "bias": np32(mod.bias)})
     return {"params": params, "batch_stats": stats}
+
+
+def _convs(module: nn.Module) -> Iterator[Tuple[str, nn.Conv2d]]:
+    for name, child in module.named_modules():
+        if isinstance(child, nn.Conv2d):
+            yield name.replace(".", "/"), child
+
+
+@torch.no_grad()
+def load_flax_convs(module: nn.Module, params: Dict[str, Any]) -> None:
+    """Fill every Conv2d of ``module`` in place from a flax params tree
+    (kernel [kh, kw, I, O], bias when the conv has one)."""
+    for path, conv in _convs(module):
+        p = _get(params, path)
+        conv.weight.copy_(torch.tensor(_conv_to_torch(
+            np.asarray(p["kernel"], np.float32), False)))
+        if conv.bias is not None:
+            conv.bias.copy_(torch.tensor(np.asarray(p["bias"], np.float32)))
+
+
+def export_flax_convs(module: nn.Module) -> Dict[str, Any]:
+    """The inverse of ``load_flax_convs``: a flax-layout numpy tree."""
+    params: Dict[str, Any] = {}
+    for path, conv in _convs(module):
+        leaf = {"kernel": _conv_to_flax(
+            conv.weight.detach().float().cpu().numpy(), False)}
+        if conv.bias is not None:
+            leaf["bias"] = conv.bias.detach().float().cpu().numpy()
+        _set(params, path, leaf)
+    return params

@@ -1,10 +1,12 @@
 """Spectrogram autoencoder in NCHW.
 
 Encoder: three stride-2 convs to a [latent_dim, 16, 16] latent, with
-BatchNorm (eps 1e-5; flax momentum 0.9 is torch momentum 0.1) and ReLU
+BatchNorm (eps 1e-5, flax momentum 0.9; ``models/layers.py``) and ReLU
 on the first two, BN only on the last.  Decoder: three k4 s2 transpose
 convs ending in tanh.  Parameter counts: encoder 111,840, decoder
-198,209.  Inference uses eval mode (running statistics).
+198,209.  ``train`` is explicit, as in flax: False (inference, the
+frozen encoder of LDM training) normalises with the running statistics,
+True with the batch's and updates the running ones.
 """
 
 from __future__ import annotations
@@ -13,12 +15,12 @@ import torch
 from torch import nn
 
 from music_style_transfer_ldm_tpu_torch.models.layers import (
-    conv_s2, convT_k4,
+    BatchNorm, conv_s2, convT_k4,
 )
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, momentum=0.9, eps=1e-5)
 
 
 class SpectrogramEncoder(nn.Module):
@@ -30,10 +32,10 @@ class SpectrogramEncoder(nn.Module):
         self.conv2, self.bn2 = conv_s2(64, 128), _bn(128)
         self.conv3, self.bn3 = conv_s2(128, latent_dim), _bn(latent_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        return self.bn3(self.conv3(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.conv1(x), train))
+        x = torch.relu(self.bn2(self.conv2(x), train))
+        return self.bn3(self.conv3(x), train)
 
 
 class SpectrogramDecoder(nn.Module):
@@ -45,7 +47,7 @@ class SpectrogramDecoder(nn.Module):
         self.deconv2, self.bn2 = convT_k4(128, 64), _bn(64)
         self.deconv3 = convT_k4(64, 1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        z = torch.relu(self.bn1(self.deconv1(z)))
-        z = torch.relu(self.bn2(self.deconv2(z)))
+    def forward(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        z = torch.relu(self.bn1(self.deconv1(z), train))
+        z = torch.relu(self.bn2(self.deconv2(z), train))
         return torch.tanh(self.deconv3(z))

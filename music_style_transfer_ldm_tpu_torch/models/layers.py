@@ -1,5 +1,6 @@
 """Shared building blocks in NCHW: the convolution geometries, the
-sinusoidal time embedding and style cross-attention.
+sinusoidal time embedding, style cross-attention and BatchNorm with
+flax's semantics.
 
 Geometry map from the JAX package's flax layers:
 * ``conv_s1`` / ``conv_s2``: k3 convs, stride 1 / 2, padding 1;
@@ -81,3 +82,37 @@ class CrossAttention(nn.Module):
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax ``nn.BatchNorm(momentum=0.9)`` semantics.
+
+    ``train`` is explicit, as flax's ``use_running_average=not train``:
+    False normalises with the running statistics whatever the module's
+    mode.  True normalises with the batch mean and the *biased* batch
+    variance, E[x^2] - E[x]^2 clipped at 0 (torch's BatchNorm2d updates
+    its running variance with the unbiased one), and updates the running
+    statistics with both: ra = m * ra + (1 - m) * batch, m = 0.9.
+    Statistics and normalisation in f32, the result in the input's
+    dtype."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.float()
+        mean = x32.mean((0, 2, 3))
+        var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+        m = self.flax_momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape)
+        return (y + self.bias.float().reshape(shape)).to(x.dtype)

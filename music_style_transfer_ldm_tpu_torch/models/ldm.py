@@ -2,12 +2,13 @@
 
 ``LDM`` holds the encoder, decoder, UNet and style encoder (NCHW inside).
 Its public methods take and return the JAX package's NHWC layout, so a
-test compares like with like.  ``content_style_transfer`` is the SDEdit
-product path: encode content, noise it to t = N-1 with per-item noise,
-walk the grid with DDIM or DPM-Solver++(2M) conditioned on the style
-pyramid, decode.  ``style_ddim_sample`` generates from noise instead.
-``load_ldm`` builds the model from a checkpoint of the port
-(``training/checkpoint.py``).
+test compares like with like.  ``LDM.forward`` is the training forward.
+``content_style_transfer`` is the SDEdit product path: encode content,
+noise it to t = N-1 with per-item noise, walk the grid with DDIM or
+DPM-Solver++(2M) conditioned on the style pyramid, decode.
+``style_ddim_sample`` generates from noise instead.  ``load_ldm`` builds
+the model from a checkpoint of the port (``training/checkpoint.py``),
+the ones training writes included.
 """
 
 from __future__ import annotations
@@ -102,6 +103,42 @@ class LDM(nn.Module):
         """UNet on NHWC latents with an NHWC style pyramid."""
         emb = {k: _nchw(v) for k, v in style_embedding.items()}
         return _nhwc(self.unet(_nchw(z_t), t, emb))
+
+    # ---- training forward ----------------------------------------------
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor, t: torch.Tensor,
+                train: bool = False, frozen_encoder: bool = False,
+                style_drop_mask: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """NHWC content x and style [B, 128, 128, 1], t [B] -> NHWC
+        {z_t, noise, noise_pred, z_0, reconstructed}.
+
+        frozen_encoder=True keeps the encoder's BatchNorm on its running
+        statistics while the decoder's trains.  style_drop_mask [B] (1 =
+        drop) zeroes the style pyramid of those samples (classifier-free
+        guidance training).  ``noise`` [B, 16, 16, latent_dim] (NHWC) is
+        the q-sample draw as given; otherwise it is drawn here.
+        reconstructed is f32 in [0, 1]."""
+        sched = self.schedule
+        x = _nchw(x).to(self.device, torch.float32)
+        style = _nchw(style).to(self.device, torch.float32)
+        z_0 = self.encoder(x, train=train and not frozen_encoder)
+        emb = self.style_encoder(style)
+        if style_drop_mask is not None:
+            keep = (1.0 - style_drop_mask.float()).reshape(-1, 1, 1, 1)
+            emb = {k: v * keep.to(v.dtype) for k, v in emb.items()}
+        z0 = z_0.float()
+        eps = (torch.randn_like(z0) if noise is None
+               else _nchw(noise).to(z0.device, torch.float32))
+        z_t = sched.q_sample_with_noise(z0, t, eps)
+        noise_pred = self.unet(z_t, t, emb)
+        z_0_pred = sched.predict_start_from_noise(z_t, t, noise_pred.float())
+        reconstructed = self.decoder(z_0_pred, train=train)
+        reconstructed = (reconstructed.float() + 1.0) / 2.0
+        return {"z_t": _nhwc(z_t), "noise": _nhwc(eps),
+                "noise_pred": _nhwc(noise_pred), "z_0": _nhwc(z_0),
+                "reconstructed": _nhwc(reconstructed)}
 
     # ---- pieces of the transfer path (NCHW inside) ----------------------
 

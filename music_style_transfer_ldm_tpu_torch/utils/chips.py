@@ -1,4 +1,4 @@
-"""Device selection and the fused-route bucket limit.
+"""Device selection, the fused-route bucket limit, exact float32.
 
 Entry points default to ``device="cuda"`` and raise when there is no
 card: there is no silent CPU path.  Tests pass ``device="cpu"``.
@@ -6,6 +6,7 @@ card: there is no silent CPU path.  Tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -22,6 +23,19 @@ def fused_bucket_max() -> int:
     if env:
         return max(1, int(env))
     return _DEFAULT_FUSED_BUCKET_MAX
+
+
+@contextlib.contextmanager
+def exact_float32(device: torch.device):
+    """float32 as written: autocast off and TF32 convolutions off while
+    the block runs (cuDNN's default TF32 keeps about three digits)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.autocast(torch.device(device).type, enabled=False):
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def resolve_device(device="cuda") -> torch.device:
