@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
      shapes, with the tolerances stated below;
   4. the image-level path: SDEdit transfer served by the InferenceEngine
      at full width (random weights from seed 0, bf16), on the fused route
-     and the scan route, with the kernels' launch counts read around it;
+     (every bucket of the ladder) and, through a second engine, the scan
+     route, with the kernels' launch counts read around it;
   5. the WAV path, as a user runs it: a port checkpoint of the same
      weights, ``cli transfer`` (a 9 s 44.1 kHz stereo WAV -> PNG + WAV,
      fused sampler, 100 steps, overlap 0.5, content phases), ``cli
@@ -28,8 +29,10 @@ Phases, in order; any failure exits non-zero:
      around it; then one f32 step at B=8 through the kernels against the
      same step through the plain versions;
   7. times with CUDA events (host clock for the CLI, HTTP and training
-     steps), each printed with the card's name and power limit, and a
-     profile of one training step.
+     steps), each printed with the card's name and power limit: kernel A
+     at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
+     shared memory per block and launch plan; and a profile of one
+     training step.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -52,6 +55,10 @@ TOL_KERNEL_B = 1e-6     # f32 elementwise, same op order, no fma contraction
 TOL_KERNEL_A = 1e-4     # f32 latents after a full trajectory (sum order)
 TOL_KERNEL_A_BF16 = 2e-2  # bf16 decoded images [0, 1] (rounding flips)
 TOL_GROUPING = 1e-4     # f32 engine: one request alone vs inside a batch
+# Kernel A f32, one element alone vs inside a batch of 8 on the same
+# packed operands: each output sums its own element's K in an order that
+# does not depend on B, so by design the difference is 0.
+TOL_ALONE = 1e-4
 # Kernel C vs its plain version: summation order and log10f's last bit
 # may move a value by one step of the /255 grid, on few elements.
 TOL_KERNEL_C = 1.0 / 255.0 + 1e-6
@@ -226,36 +233,65 @@ def main() -> int:
         return ops, z_t.permute(0, 2, 3, 1).contiguous(), len(times) - 1
 
     err_a = 0.0
-    for B, sampler, eta, steps in ((1, "ddim", 0.0, None),
-                                   (1, "ddim", 0.5, None),
-                                   (4, "ddim", 0.0, None),
-                                   (4, "ddim", 0.5, None),
-                                   (4, "dpm++", 0.0, 25)):
-        ops, z_t, n = packed(ldm32, B, sampler, eta, steps)
-        k = fs.fused_ddim_sample(ops, z_t, n)
-        r = fs.reference_ddim_sample(ops, z_t, n)
-        torch.cuda.synchronize()
-        err = (k - r).abs().max().item()
-        check(bool(torch.isfinite(k).all()), "kernel A gave non-finite")
-        print(f"kernel A vs plain f32 B={B} {sampler} eta={eta} steps={n}: "
-              f"max abs err {err:.3g} on latents (tol {TOL_KERNEL_A})")
-        err_a = max(err_a, err)
+    for B in (1, 3, 8):
+        for sampler, eta, steps in (("ddim", 0.0, None), ("ddim", 0.5, None),
+                                    ("dpm++", 0.0, 25)):
+            ops, z_t, n = packed(ldm32, B, sampler, eta, steps)
+            k = fs.fused_ddim_sample(ops, z_t, n)
+            r = fs.reference_ddim_sample(ops, z_t, n)
+            torch.cuda.synchronize()
+            err = (k - r).abs().max().item()
+            check(bool(torch.isfinite(k).all()), "kernel A gave non-finite")
+            print(f"kernel A vs plain f32 B={B} {sampler} eta={eta} "
+                  f"steps={n}: max abs err {err:.3g} on latents (tol "
+                  f"{TOL_KERNEL_A})")
+            err_a = max(err_a, err)
     check(err_a <= TOL_KERNEL_A, "kernel A (f32) disagrees with its plain "
           "version")
+    # one element alone vs inside the batch, on the same packed operands
+    ops8, z8, n8 = packed(ldm32, 8)
+    k8 = fs.fused_ddim_sample(ops8, z8, n8)
+    err_alone = 0.0
+    for i in range(8):
+        one = dataclasses.replace(ops8, kv=[t[i:i + 1] for t in ops8.kv],
+                                  batch=1)
+        k1 = fs.fused_ddim_sample(one, z8[i:i + 1], n8)
+        err_alone = max(err_alone, (k1[0] - k8[i]).abs().max().item())
+    print(f"kernel A f32 alone vs inside a batch of 8: max abs difference "
+          f"{err_alone} (by design 0; tol {TOL_ALONE})")
+    check(err_alone <= TOL_ALONE, "kernel A: an element's result depends on "
+          "its batch")
 
     ldm = build_ldm(dtype=torch.bfloat16, device=dev, seed=0)
-    ops16, z_t16, n16 = packed(ldm, 4)
-    k = fs.fused_ddim_sample(ops16, z_t16, n16)
-    r = fs.reference_ddim_sample(ops16, z_t16, n16)
-    dk = ldm.decode_unit(k.permute(0, 3, 1, 2))
-    dr = ldm.decode_unit(r.permute(0, 3, 1, 2))
-    torch.cuda.synchronize()
-    err_a16 = (dk - dr).abs().max().item()
-    print(f"kernel A vs plain bf16 B=4 ddim steps={n16}: max abs err "
-          f"{err_a16:.3g} on decoded images, {(k - r).abs().max().item():.3g}"
-          f" on latents (tol {TOL_KERNEL_A_BF16} decoded)")
+    err_a16 = 0.0
+    for B in (1, 8):
+        ops16, z_t16, n16 = packed(ldm, B)
+        k = fs.fused_ddim_sample(ops16, z_t16, n16)
+        r = fs.reference_ddim_sample(ops16, z_t16, n16)
+        dk = ldm.decode_unit(k.permute(0, 3, 1, 2))
+        dr = ldm.decode_unit(r.permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        err = (dk - dr).abs().max().item()
+        print(f"kernel A vs plain bf16 B={B} ddim steps={n16}: max abs err "
+              f"{err:.3g} on decoded images, "
+              f"{(k - r).abs().max().item():.3g} on latents (tol "
+              f"{TOL_KERNEL_A_BF16} decoded)")
+        err_a16 = max(err_a16, err)
     check(err_a16 <= TOL_KERNEL_A_BF16, "kernel A (bf16) disagrees with its "
           "plain version")
+    plans = {dt: fs.device_plan(torch.cuda.current_device(), dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    for dt, plan in plans.items():
+        units = [len(x) for x in plan["slots"]]
+        wb = plan["weight_bytes"]
+        print(f"kernel A plan {dt}: grid {plan['n_blocks']} blocks (one per "
+              f"SM) x 512 threads, cooperative; {sum(units)} weight units "
+              f"(layer, 16-channel tile, replica), {min(units)}-{max(units)} "
+              f"per block; dynamic shared memory {plan['smem_bytes']} B per "
+              f"block of {plan['smem_limit']} (weights {min(wb)}-{max(wb)} B "
+              f"per block, {sum(wb)} B in all); elements per pass "
+              f"{dict(zip(fs._NAMES, plan['groups']))}")
+
     fb = torch.as_tensor(mel_filterbank_np(22050, 2048, 128), device=dev)
     spectra = {}
     for B in (1, 8):
@@ -421,7 +457,14 @@ def main() -> int:
                               err_a16, "fused_mel_unit_image": err_c,
                               "fused_mel_unit_image_flip_share": flips_c}
     results["max_abs_err"].update({"normalized_mse": err_d,
-                                   "fused_vggish_distance": err_e})
+                                   "fused_vggish_distance": err_e,
+                                   "fused_ddim_sample_alone_vs_batched":
+                                   err_alone})
+    results["kernel_a_plan"] = {
+        str(dt): {k: plan[k] for k in ("n_blocks", "smem_bytes",
+                                        "smem_limit", "weight_bytes",
+                                        "groups")}
+        for dt, plan in plans.items()}
 
     def reset_counts():
         for fn in counted:
@@ -453,10 +496,14 @@ def main() -> int:
                for i in range(6)]
     served = [w.get(timeout=600) for w in waiters]
     engine.stop()
+    scan_engine = InferenceEngine(ldm, EngineConfig(sampler="ddim"))
+    outs.append(scan_engine.transfer_batch(reqs_c, reqs_s,
+                                           seeds=np.arange(8)))
     launches = read_counts()
     print(f"image path: warmup {warm_s:.2f} s; served B=1, B=3 (bucket 4), "
-          f"B=8 and 6 submitted requests; launches {launches}; stats "
-          f"{engine.stats()}")
+          f"B=8 and 6 submitted requests on the fused route (buckets <= "
+          f"{engine.fused_bucket_max}), B=8 on the scan route; launches "
+          f"{launches}; stats {engine.stats()}")
     for r in served:
         check(not isinstance(r, Exception), f"request failed: {r!r}")
     for o in outs:
@@ -694,14 +741,15 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
-                   "bound_a_ms": {}, "engine_request_s": {}}
-    for B in (1, 4, 8):
+                   "bound_a_ms": {}, "engine_request_s": {},
+                   "scan_engine_request_s": {}, "kernel_a_f32_ms": {}}
+    for B in (1, 2, 4, 8):
         ops, z_t, n = packed(ldm, B)
         emb = ldm.style_encoder(style[:B].permute(0, 3, 1, 2).bfloat16())
         z_nchw = z_t.permute(0, 3, 1, 2)
         grid = transfer_time_grid(50)
         times["kernel_a_ms"][B] = cuda_ms(
-            lambda: fs.fused_ddim_sample(ops, z_t, n), 5)
+            lambda: fs.fused_ddim_sample(ops, z_t, n), 20)
         times["plain_a_ms"][B] = cuda_ms(
             lambda: fs.reference_ddim_sample(ops, z_t, n), 2)
         times["scan_route_ms"][B] = cuda_ms(
@@ -711,11 +759,25 @@ def main() -> int:
         times["bound_a_ms"][B] = 1e3 * max(cost["flops"] / H100_BF16_FLOPS,
                                            cost["bytes"] / H100_BYTES)
         print(f"time {card} B={B}, {n} steps, bf16: kernel A "
-              f"{times['kernel_a_ms'][B]:.3f} ms/trajectory, plain version "
-              f"{times['plain_a_ms'][B]:.3f} ms, scan route "
+              f"{times['kernel_a_ms'][B]:.3f} ms/trajectory "
+              f"({1e3 * times['kernel_a_ms'][B] / n:.1f} us/step), plain "
+              f"version {times['plain_a_ms'][B]:.3f} ms, scan route "
               f"{times['scan_route_ms'][B]:.3f} ms, bound "
               f"{times['bound_a_ms'][B]:.4f} ms ({cost['flops'] / 1e9:.2f} "
               f"GFLOP, {cost['bytes'] / 1e6:.2f} MB)")
+    for B in (1, 8):    # the f32 instance: a parity instrument
+        ops, z_t, n = packed(ldm32, B)
+        times["kernel_a_f32_ms"][B] = cuda_ms(
+            lambda: fs.fused_ddim_sample(ops, z_t, n), 3)
+        print(f"time {card} B={B}, {n} steps, f32: kernel A "
+              f"{times['kernel_a_f32_ms'][B]:.3f} ms/trajectory")
+    faster = [B for B in times["kernel_a_ms"]
+              if times["kernel_a_ms"][B] < times["scan_route_ms"][B]]
+    print(f"kernel A beats the scan route at buckets {faster}; the engine "
+          f"routes buckets <= {engine.fused_bucket_max} to it")
+    check(all(B in faster for B in times["kernel_a_ms"]
+              if B <= engine.fused_bucket_max),
+          "kernel A is slower than the scan route at a bucket routed to it")
     ab49, ab48 = float(ab[49]), float(ab[48])
     xb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
     eb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
@@ -732,8 +794,13 @@ def main() -> int:
         engine.transfer_batch(reqs_c[:B], reqs_s[:B], seeds=np.arange(B))
         times["engine_request_s"][B] = time.perf_counter() - t0
         route = "fused" if engine.uses_fused(B) else "scan"
+        t0 = time.perf_counter()
+        scan_engine.transfer_batch(reqs_c[:B], reqs_s[:B], seeds=np.arange(B))
+        times["scan_engine_request_s"][B] = time.perf_counter() - t0
         print(f"time {card} engine transfer_batch B={B} ({route} route, 50 "
-              f"steps, NNLS 64, GL 32): {times['engine_request_s'][B]:.3f} s")
+              f"steps, NNLS 64, GL 32): {times['engine_request_s'][B]:.3f} "
+              f"s; scan-route engine {times['scan_engine_request_s'][B]:.3f}"
+              " s")
     times.update({"kernel_c_ms": {}, "plain_c_ms": {}, "bound_c_ms": {},
                   "front_end_ms_per_chunk": {}, "bound_c_by": {}})
     for B in (1, 8):
@@ -780,13 +847,23 @@ def main() -> int:
                "operations": cost["flops"] / H100_F32_FLOPS}
     bound_d_ms = 1e3 * max(bound_d.values())
     bound_d_by = max(bound_d, key=bound_d.get)
+    # backward (dp): p and t read once, dp written once (bf16), the
+    # statistics and upstream scales; 10 operations per element
+    bwd_bytes = 3 * p16.numel() * 2 + 20 * 128
+    bound_d_bwd = {"bytes": bwd_bytes / H100_BYTES,
+                   "operations": 10 * p16.numel() / H100_F32_FLOPS}
+    bound_d_bwd_ms = 1e3 * max(bound_d_bwd.values())
     print(f"time {card} kernel D [128,128,128,64] bf16: forward "
           f"{kd_ms:.3f} ms/call, plain version {pd_ms:.3f} ms; backward (dp) "
           f"{kdb_ms:.3f} ms, plain {pdb_ms:.3f} ms; forward bound "
-          f"{bound_d_ms:.4f} ms ({bound_d_by}: {cost['bytes'] / 1e6:.1f} MB)")
+          f"{bound_d_ms:.4f} ms ({bound_d_by}: {cost['bytes'] / 1e6:.1f} MB),"
+          f" backward bound {bound_d_bwd_ms:.4f} ms "
+          f"({max(bound_d_bwd, key=bound_d_bwd.get)}: {bwd_bytes / 1e6:.1f} "
+          "MB)")
     times.update({"kernel_d_ms": kd_ms, "plain_d_ms": pd_ms,
                   "kernel_d_bwd_ms": kdb_ms, "plain_d_bwd_ms": pdb_ms,
-                  "bound_d_ms": bound_d_ms, "bound_d_by": bound_d_by})
+                  "bound_d_ms": bound_d_ms, "bound_d_by": bound_d_by,
+                  "bound_d_bwd_ms": bound_d_bwd_ms})
     del p16, t16
     # kernel E: the trunk from f1, bf16, B=8 and B=128
     times.update({"kernel_e_ms": {}, "plain_e_ms": {}, "bound_e_ms": {}})

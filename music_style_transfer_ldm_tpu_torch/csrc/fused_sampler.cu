@@ -5,50 +5,129 @@
 // fused_ddim_sample (the pallas_call at :522): S-1 steps of the
 // style-attending UNet plus the folded update
 //     x <- A x + B eps + C prev,   prev <- P x + Q eps
-// with no host in the step loop.  It ports what that kernel computes, not
-// its TPU formulation: there are no roll-tap convs, no resampling matrices
-// and no block-masked attention here.
+// with no host in the step loop.  It ports what that kernel computes and
+// what it keeps out of device memory (every weight stays on chip for all
+// steps), not its TPU formulation.
 //
-// Design (first, simple version).  One block per batch element (grid = B,
-// B <= 8); the block loops over the steps, so elements never interact and
-// "batched equals per element" holds by construction.  Each layer is a
-// strided loop over (4-pixel group, output channel); each output is a
-// direct 3x3 sum accumulated in f32, then bias, ReLU and the time-embedding
-// or skip add where the UNet puts them, rounded to the working type T.
-// Transpose convs are computed directly in ConvTranspose2d(k3, s2, p1,
-// output_padding=1) geometry.  Cross-attention runs per head against this
-// element's own precomputed K/V (16 keys on s5, 4 on s6), softmax in f32.
-// __syncthreads() separates layers.  Activations, skips and the f32
-// carries live in a per-element global workspace that the caller
-// allocates; weights are read through L1/L2.
+// Bound on the H100 (B = 1, 49 steps): 51.5 M MAC per element-step (47.2 M
+// in the nine convs, 4.3 M in attention), 5.05 GFLOP, about 5.1 us at 989
+// TFLOP/s bf16; the 12.3 MB of bf16 weights read once take 3.7 us at 3.35
+// TB/s.  At B <= 8 the real floor is the dependency chain: 15 layer
+// phases per step, each waiting for the one before across the whole
+// UNet, so 735 grid-wide barriers per trajectory.
 //
-// Weight layout (packed by ops/fused_sampler.py pack_operands): convs are
-// tap-major [kh][kw][Cin][Cout] (from torch's [Cout][Cin][kh][kw], or
-// [Cin][Cout][kh][kw] for the transpose convs), so the threads of a warp,
-// which hold consecutive output channels, read consecutive weights.  Dense
-// weights are [in][out].
-//
-// Bound on the H100 (per B = 1, 49-step trajectory): 51.5 M MAC per
-// element-step (47.2 M in the nine convs, 4.3 M in attention), 5.05 GFLOP,
-// about 5.1 us at 989 TFLOP/s bf16: compute-bound (the 12.3 MB of bf16
-// weights read once take about 3.7 us at 3.35 TB/s).  This design uses B of
-// the 132 SMs and CUDA cores, not tensor cores, so it is far from that
-// bound.  Queued redesign: several CTAs per element or a persistent kernel,
-// weights staged through shared memory with TMA, wgmma for the 9-tap
-// products.
+// Design: one persistent cooperative launch per trajectory.
+// - Grid = the card's SM count (cudaGetDeviceProperties), one 512-thread
+//   block per SM, launched with cudaLaunchCooperativeKernel so that all
+//   blocks are resident; a refused launch returns its error (no
+//   fallback).  Phases are separated by a hand-written grid barrier: one
+//   arrival counter in global memory, red.release.gpu to arrive,
+//   ld.acquire.gpu to wait.
+// - Weight-stationary blocks.  Every conv and q/out projection is a
+//   [Cout, K] matrix (K = 9 Cin tap-major, or Cin) cut into 16-row tiles;
+//   small layers' tiles are replicated, replica r taking batch elements
+//   r, r + R, ...  The host plan (ops/fused_sampler.py launch_plan) maps
+//   each (layer, tile, replica) slot to one block, never two slots of one
+//   layer to a block, so a phase's tiles run side by side.  In the bf16
+//   instance a block copies its tiles once per launch from HBM into its
+//   dynamic shared memory with TMA bulk copies (cp.async.bulk behind one
+//   mbarrier) and reuses them for every step: the biggest tile, 16
+//   channels of the bottleneck, is 147 KB; with the 72 KB of scratch a
+//   block needs at most 221 KB of its 227 KB.
+// - Tensor cores: each conv is an implicit GEMM, output channels on M
+//   (the stationary weight tile), pixels x batch on N, K = 9 Cin.  N is
+//   small (4 B at 2x2, 256 B at 16x16), so mma.sync.m16n8k16 (bf16 in,
+//   f32 accumulate) fits the 16-channel tiles as they are; wgmma's 64-row
+//   tile would need 64-channel tiles (590 KB at the bottleneck) and so
+//   split-K across blocks.  The weights are packed in A-fragment order,
+//   so a lane reads its fragment as one 16-byte word.  The unit's input
+//   maps are staged from global memory (L2-resident) into shared memory,
+//   one pass of G elements at a time, pixel rows padded by 16 bytes
+//   against bank conflicts; ldmatrix.x4 reads the B fragments of two
+//   8-column tiles straight from those rows, each lane pointing at the
+//   source pixel of its column under the tap (stride-1, stride-2,
+//   transpose or one-tap geometry), or at a zero row where there is none.
+//   A warp runs one k-part of a group of four tiles, one A fragment for
+//   four independent products; a tap that no column of the group uses is
+//   skipped, and a transpose conv's columns run by output parity class
+//   so that a group shares its one, two or four live taps.  K is split
+//   over warps by a fixed per-layer factor; the partial sums go to shared
+//   memory and are added in k-part order, then bias, ReLU, the
+//   time-embedding or skip add (prefetched before the gather), and
+//   rounding to T, two channels per store.  dec1's epilogue writes f32
+//   eps straight into the update of the f32 x and prev carries; enc1's
+//   gather rounds the next step's x to T.
+// - Cross-attention is three phases: q projection (a one-tap GEMM), the
+//   core per (element, head) on CUDA cores against this element's K/V
+//   (softmax in f32, probabilities rounded to T), out projection.
+// - The f32 instance keeps the same structure and plan, and exact f32 FMA
+//   on CUDA cores (TF32 would miss the 1e-4 bar); its 24.6 MB of weights
+//   stay in global memory, L2-resident, read through the same packed
+//   layout.
+// - Batched equals per element: every output sums its own element's K in
+//   an order fixed by the layer (k-part split and mma order do not depend
+//   on B or on the pass size), with no atomics, so one request alone and
+//   inside a batch give the same bits.
+// Activations cross blocks through a workspace in global memory that the
+// caller allocates (read with ld.global.cg, so no stale L1 line is seen);
+// the kernel allocates nothing.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kPix = 4;          // output pixels per thread item
+constexpr int kWarps = kThreads / 32;
+constexpr int kLayers = 13;
+constexpr int kPhases = 15;
+constexpr int kMaxSlots = kLayers;
+constexpr int kGroup = 4;        // 8-column mma tiles per warp item
+constexpr int kOutPairs = 4;     // bf16 epilogue: channel pairs per thread
 constexpr int kHeads = 4;
-constexpr int kLat = 32;         // latent channels
-constexpr int kNF = 64;          // UNet num_filters
-constexpr int kH = 16;           // latent grid
+constexpr int kLatPix = 256;   // 16 x 16 latent pixels
+constexpr int kLat = 32;       // latent channels
+constexpr int kTemb = 128;
+
+enum Kind { kS1 = 0, kS2 = 1, kT = 2, kProj = 3 };
+
+}  // namespace
+
+// Mirrored by ctypes structures in ops/fused_sampler.py.
+struct LayerDesc {
+  int kind, cin, cout, hin, hout, replicas, group, ksplit;
+  int w_off, b_off;        // elements into weights / biases
+  int in_off, out_off;     // elements into the workspace; -1 = x / eps
+  int skip_off;            // -1 = none
+  int temb, relu, eps_out;
+};
+
+struct AttnDesc {
+  int q_off, att_off, rows, channels, keys, kv, pad0, pad1;
+};
+
+struct SamplerArgs {
+  const void* weights;     // T, every layer's tiles in fragment order
+  const void* biases;      // T
+  const void* kv[4];       // T [B, Tk, C]: k5 v5 k6 v6
+  const void* temb;        // T [n_steps, 128]
+  const float* coefs;      // [n_steps, 5]: A B C P Q
+  const float* x_in;       // [B, 256, 32]
+  float* x_out;            // [B, 256, 32], the x carry
+  void* workspace;         // T activations
+  float* prev;             // [B, 256, 32], the prev carry
+  unsigned* barrier;       // one zeroed arrival counter
+  const int* plan;         // [grid][kMaxSlots][layer, tile, replica, smem]
+  LayerDesc layers[kLayers];
+  AttnDesc attn[2];
+  int phases[kPhases];     // a layer, or -1 - a for attention a's core
+  int n_steps, batch, scratch_off, smem_bytes;
+};
+
+namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -63,280 +142,724 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-enum ConvKind { kS1 = 0, kS2 = 1, kT = 2 };
-
-// Per-element workspace layout, in elements of T except the f32 regions.
-struct Layout {
-  // T regions
-  static constexpr int xt = 0;                          // 16x16x32
-  static constexpr int z1 = xt + kH * kH * kLat;        // 16x16x64
-  static constexpr int z2 = z1 + kH * kH * kNF;         // 8x8x128
-  static constexpr int z3 = z2 + 64 * kNF * 2;          // 4x4x256
-  static constexpr int z3a = z3 + 16 * kNF * 4;         // 4x4x256
-  static constexpr int z4 = z3a + 16 * kNF * 4;         // 2x2x512
-  static constexpr int z4a = z4 + 4 * kNF * 8;          // 2x2x512
-  static constexpr int zb = z4a + 4 * kNF * 8;          // 2x2x512
-  static constexpr int u3 = zb + 4 * kNF * 8;           // 4x4x256
-  static constexpr int u2 = u3 + 16 * kNF * 4;          // 8x8x128
-  static constexpr int u1 = u2 + 64 * kNF * 2;          // 16x16x64
-  static constexpr int q = u1 + kH * kH * kNF;          // attention q
-  static constexpr int att = q + 16 * kNF * 4;          // attention PV
-  static constexpr int t_elems = att + 16 * kNF * 4;
-  // f32 regions (after the T regions, 16-byte aligned)
-  static constexpr int prev = 0;                        // 16x16x32
-  static constexpr int eps = prev + kH * kH * kLat;     // 16x16x32
-  static constexpr int probs = eps + kH * kH * kLat;    // heads x 16 x 16
-  static constexpr int f_elems = probs + kHeads * 16 * 16;
-};
-
-template <typename T>
-__host__ __device__ constexpr size_t ws_bytes() {
-  return ((Layout::t_elems * sizeof(T) + 15) / 16) * 16 +
-         Layout::f_elems * sizeof(float);
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-}  // namespace
+// A wait longer than this means a block will never arrive (a fault, or a
+// grid that is not all resident): trap rather than hang the card.
+constexpr uint64_t kWaitLimitNs = 2000000000ull;
 
-// Pointers of the packed operands; mirrored by a ctypes.Structure in
-// ops/fused_sampler.py.  Conv order: enc1 enc2 enc3 enc4 bottleneck dec4
-// dec3 dec2 dec1.  Attention order: cross_attention2 (on s5), then
-// cross_attention1 (on s6); fields wq bq k v wo bo.
-struct SamplerArgs {
-  const void* conv_w[9];
-  const void* conv_b[9];
-  const void* attn[2][6];
-  const void* temb;       // [n_steps, 128], T
-  const float* coefs;     // [n_steps, 5], f32: A B C P Q
-  const float* x_in;      // [B, 256, 32], f32
-  float* x_out;           // [B, 256, 32], f32; the x carry
-  void* workspace;        // B x ws_bytes<T>()
-  int n_steps;
-  int batch;
+// Grid-wide barrier: every block arrives once; the counter only grows,
+// so barrier n completes at n x gridDim.x arrivals.  The block's writes
+// are ordered before thread 0's release by __syncthreads, and its reads
+// after thread 0's acquire likewise (the pattern of CUTLASS's
+// GenericBarrier).
+__device__ __forceinline__ void grid_sync(unsigned* counter,
+                                          unsigned& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+                 :: "l"(counter), "r"(1u) : "memory");
+    const uint64_t t0 = global_ns();
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen) : "l"(counter) : "memory");
+      if (global_ns() - t0 > kWaitLimitNs) __trap();
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// Input pixel (iy, ix) of output pixel (oy, ox) under tap (ky, kx);
+// false where there is none (a negative oy has none).
+__device__ __forceinline__ bool src_pixel(int kind, int hin, int oy, int ox,
+                                          int ky, int kx, int& iy, int& ix) {
+  if (kind == kProj) {
+    iy = oy;
+    ix = ox;
+  } else if (kind == kT) {   // ConvTranspose2d(k3, s2, p1, op1)
+    const int ty = oy + 1 - ky, tx = ox + 1 - kx;   // = 2 iy, 2 ix
+    iy = (ty & 1) ? -1 : ty >> 1;
+    ix = (tx & 1) ? -1 : tx >> 1;
+  } else {
+    const int step = kind == kS2 ? 2 : 1;
+    iy = step * oy - 1 + ky;
+    ix = step * ox - 1 + kx;
+  }
+  return iy >= 0 && iy < hin && ix >= 0 && ix < hin;
+}
+
+// Element of the packed weight tile holding W[m][k] (fragment order; see
+// ops/fused_sampler.py pack_tiles).
+__device__ __forceinline__ int frag_index(int m, int k) {
+  const int kk = k & 15;
+  return (((((k >> 4) * 8 + (m & 7)) * 4 + ((kk & 7) >> 1)) * 2 + (kk >> 3))
+              * 2 + (m >> 3)) * 2 + (kk & 1);
+}
+
+// Every map side and channel count is a power of two: divide by shifts.
+__device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
+
+template <typename T>
+struct Step {
+  const T* temb;     // this step's row
+  float A, B, C, P, Q;
 };
 
-namespace {
-
-// out = epilogue(conv3x3(in)), HWC maps of one element.
+// 16 bytes of T of the unit's input at element offset `src`: a plain
+// load, or for enc1 four or eight floats of the f32 x carry rounded to T.
 template <typename T>
-__device__ void conv3x3(const T* in, int hin, int cin,
-                        const T* __restrict__ w, const T* __restrict__ bias,
-                        int cout, ConvKind kind, bool relu,
-                        const T* __restrict__ add_vec, const T* add_map,
-                        T* out, float* out_f32) {
-  const int ho = kind == kS1 ? hin : (kind == kS2 ? hin / 2 : hin * 2);
-  const int npix = ho * ho;
-  const int items = (npix / kPix) * cout;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int co = item % cout;
-    const int p0 = (item / cout) * kPix;
-    float acc[kPix];
+__device__ __forceinline__ uint4 load_chunk(const LayerDesc& L,
+                                            const SamplerArgs& a,
+                                            size_t src) {
+  if (L.in_off >= 0) {
+    return __ldcg(reinterpret_cast<const uint4*>(
+        static_cast<const T*>(a.workspace) + L.in_off + src));
+  }
+  constexpr int kVec = 16 / sizeof(T);
+  uint4 out;
+  T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) acc[j] = 0.f;
-    for (int ky = 0; ky < 3; ++ky) {
-      for (int kx = 0; kx < 3; ++kx) {
-        int src[kPix];
+  for (int v = 0; v < kVec; v += 4) {
+    const float4 f = __ldcg(reinterpret_cast<const float4*>(
+        a.x_out + src + v));
+    o[v] = from_f<T>(f.x);
+    o[v + 1] = from_f<T>(f.y);
+    o[v + 2] = from_f<T>(f.z);
+    o[v + 3] = from_f<T>(f.w);
+  }
+  return out;
+}
+
+// Stage the input maps of g elements (e = rep + R (j0 + el)) in shared
+// memory: [el][pixel][cin + 16 bytes of padding].  Each thread issues
+// kBatch loads before it stores any, so their latencies overlap.
+template <typename T>
+__device__ __forceinline__ void gather(const LayerDesc& L,
+                                       const SamplerArgs& a, int rep,
+                                       int j0, int g, T* stage) {
+  constexpr int kVec = 16 / sizeof(T), kBatch = 4;
+  const int cvec = L.cin / kVec;
+  const int lc = ilog2(cvec), lp = 2 * ilog2(L.hin);
+  const int stride = L.cin + kVec;
+  const int total = g * cvec << lp;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
+    uint4 buf[kBatch];
 #pragma unroll
-        for (int j = 0; j < kPix; ++j) {
-          const int oy = (p0 + j) / ho, ox = (p0 + j) % ho;
-          int iy, ix;
-          bool ok = true;
-          if (kind == kS1) {
-            iy = oy - 1 + ky;
-            ix = ox - 1 + kx;
-          } else if (kind == kS2) {
-            iy = 2 * oy - 1 + ky;
-            ix = 2 * ox - 1 + kx;
-          } else {  // oy = 2 iy - 1 + ky
-            const int ty = oy + 1 - ky, tx = ox + 1 - kx;
-            ok = ty >= 0 && tx >= 0 && (ty & 1) == 0 && (tx & 1) == 0;
-            iy = ty >> 1;
-            ix = tx >> 1;
-          }
-          ok = ok && iy >= 0 && iy < hin && ix >= 0 && ix < hin;
-          src[j] = ok ? (iy * hin + ix) * cin : -1;
-        }
-        const T* wt = w + (size_t)(ky * 3 + kx) * cin * cout + co;
-        for (int ci = 0; ci < cin; ++ci) {
-          const float wv = to_f(wt[(size_t)ci * cout]);
-#pragma unroll
-          for (int j = 0; j < kPix; ++j) {
-            if (src[j] >= 0) acc[j] += wv * to_f(in[src[j] + ci]);
-          }
-        }
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        // i = (el, pixel, chunk); element el of the pass is element e
+        const int e = rep + L.replicas * (j0 + (i >> (lc + lp)));
+        const size_t chunk = ((size_t)e << (lc + lp))
+                             + (i & ((1 << (lc + lp)) - 1));
+        buf[u] = load_chunk<T>(L, a, chunk * kVec);
       }
     }
-    const float b = to_f(bias[co]);
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      float v = acc[j] + b;
-      if (relu) v = fmaxf(v, 0.f);
-      const int o = (p0 + j) * cout + co;
-      if (add_vec) v += to_f(add_vec[co]);
-      if (add_map) v += to_f(add_map[o]);
-      if (out_f32) {
-        out_f32[o] = v;
-      } else {
-        out[o] = from_f<T>(v);
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        *reinterpret_cast<uint4*>(stage + (i >> lc) * stride
+                                  + (i & (cvec - 1)) * kVec) = buf[u];
       }
+    }
+  }
+}
+
+// Output pixel of an element's column c.  A transpose conv's columns run
+// by parity class (oy & 1, ox & 1), each class taking one, two or four of
+// the nine taps, so that a tile of columns skips the taps none of them
+// uses; the other layers' columns are the pixels in row order.
+__device__ __forceinline__ int col_pixel(const LayerDesc& L, int c) {
+  if (L.kind != kT) return c;
+  const int lh = ilog2(L.hout);
+  const int cls = c >> (2 * lh - 2), w = c & ((1 << (2 * lh - 2)) - 1);
+  const int oy = 2 * (w >> (lh - 1)) + (cls >> 1);
+  const int ox = 2 * (w & ((1 << (lh - 1)) - 1)) + (cls & 1);
+  return (oy << lh) + ox;
+}
+
+// Output element of column `col` (pass-local) and channel co.
+__device__ __forceinline__ size_t out_index(const LayerDesc& L, int rep,
+                                            int j0, int col, int co) {
+  const int lo = 2 * ilog2(L.hout);
+  const int e = rep + L.replicas * (j0 + (col >> lo));
+  const int pix = col_pixel(L, col & ((1 << lo) - 1));
+  return ((((size_t)e << lo) + pix) * L.cout) + co;
+}
+
+// The epilogue's global operands of one output, read before any store:
+// the time-embedding or skip value, or dec1's x and prev.
+template <typename T>
+__device__ __forceinline__ void epilogue_load(const LayerDesc& L,
+                                              const SamplerArgs& a,
+                                              const Step<T>& st, int co,
+                                              size_t o, float& add,
+                                              float& pv) {
+  add = 0.f;
+  pv = 0.f;
+  if (L.temb) add = to_f(st.temb[co]);
+  if (L.skip_off >= 0) {
+    add = to_f(__ldcg(static_cast<const T*>(a.workspace) + L.skip_off + o));
+  }
+  if (L.eps_out) {
+    add = __ldcg(a.x_out + o);
+    pv = __ldcg(a.prev + o);
+  }
+}
+
+// Bias, ReLU, then the time-embedding or skip add and rounding to T into
+// the output map, or (dec1) the f32 update of the carries.
+template <typename T>
+__device__ __forceinline__ void epilogue_store(const LayerDesc& L,
+                                               const SamplerArgs& a,
+                                               const Step<T>& st, size_t o,
+                                               float v, float bias,
+                                               float add, float pv) {
+  v += bias;
+  if (L.relu) v = fmaxf(v, 0.f);
+  if (L.eps_out) {
+    a.x_out[o] = st.A * add + st.B * v + st.C * pv;
+    a.prev[o] = st.P * add + st.Q * v;
+  } else {
+    static_cast<T*>(a.workspace)[L.out_off + o] = from_f<T>(v + add);
+  }
+}
+
+// The bf16 epilogue on channel pairs (co even): one 4-byte load or store
+// where the scalar version makes two.
+__device__ __forceinline__ void epilogue_load2(
+    const LayerDesc& L, const SamplerArgs& a,
+    const Step<__nv_bfloat16>& st, int co, size_t o, float2& add,
+    float2& pv) {
+  add = make_float2(0.f, 0.f);
+  pv = make_float2(0.f, 0.f);
+  if (L.temb) {
+    add = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(st.temb + co));
+  }
+  if (L.skip_off >= 0) {
+    add = __bfloat1622float2(__ldcg(reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const __nv_bfloat16*>(a.workspace) + L.skip_off + o)));
+  }
+  if (L.eps_out) {
+    add = __ldcg(reinterpret_cast<const float2*>(a.x_out + o));
+    pv = __ldcg(reinterpret_cast<const float2*>(a.prev + o));
+  }
+}
+
+__device__ __forceinline__ void epilogue_store2(
+    const LayerDesc& L, const SamplerArgs& a,
+    const Step<__nv_bfloat16>& st, size_t o, float2 v, float2 bias,
+    float2 add, float2 pv) {
+  v.x += bias.x;
+  v.y += bias.y;
+  if (L.relu) {
+    v.x = fmaxf(v.x, 0.f);
+    v.y = fmaxf(v.y, 0.f);
+  }
+  if (L.eps_out) {
+    *reinterpret_cast<float2*>(a.x_out + o) = make_float2(
+        st.A * add.x + st.B * v.x + st.C * pv.x,
+        st.A * add.y + st.B * v.y + st.C * pv.y);
+    *reinterpret_cast<float2*>(a.prev + o) = make_float2(
+        st.P * add.x + st.Q * v.x, st.P * add.y + st.Q * v.y);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(
+        static_cast<__nv_bfloat16*>(a.workspace) + L.out_off + o) =
+        __floats2bfloat162_rn(v.x + add.x, v.y + add.y);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// `run` k-steps of the mma chains of NJ column tiles (NJ fixed, so no
+// branch sits between the loads and the products): per step one A
+// fragment (a 16-byte load in the packed order) and the B fragments of
+// two tiles per ldmatrix.x4, whose lanes point at the tiles' staged
+// pixel rows (rows[0]: tiles 0 and 1, rows[1]: tiles 2 and 3).
+template <int NJ>
+__device__ __forceinline__ void mma_run(float (*acc)[4], const uint4* ap,
+                                        const uint32_t* rows, int run) {
+#pragma unroll 2
+  for (int r = 0; r < run; ++r) {
+    const uint4 af = ap[r * 32];
+    uint32_t b[8];
+    ldsm_x4(rows[0] + r * 32, b);
+    if (NJ > 2) ldsm_x4(rows[1] + r * 32, b + 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_bf16(acc[j], af, b[2 * j], b[2 * j + 1]);
+  }
+}
+
+// One pass of a bf16 unit on the tensor cores.  A warp's item is one
+// k-part of a group of four 8-column tiles: it reads each A fragment
+// once for four independent mma chains.  The partial sums go through
+// shared memory (over the staged maps) and are added in k-part order.
+// A thread's epilogue outputs are channels m, m + 1 (m = 2 (threadIdx.x
+// % 8)) of columns threadIdx.x / 8 + 64 r; add / pv hold their operands,
+// loaded before the gather.
+__device__ __forceinline__ void mma_pass(
+    const LayerDesc& L, const SamplerArgs& a, const Step<__nv_bfloat16>& st,
+    int tile, int rep, int j0, int g, const __nv_bfloat16* wtile,
+    const float* bias, __nv_bfloat16* stage, const __nv_bfloat16* zeros,
+    const float2* add, const float2* pv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int npo = L.hout * L.hout;
+  const int ncols = g * npo, ntiles = (ncols + 7) / 8, ncp = ntiles * 8;
+  const int taps = L.kind == kProj ? 1 : 9;
+  const int kper = taps * L.cin / 16 / L.ksplit;
+  const int items = L.ksplit * ((ntiles + kGroup - 1) / kGroup);
+  const int stride = L.cin + 8;
+  const int lh = ilog2(L.hout), lpo = 2 * lh;
+  // Partial sums [k-part][16][pitch]: a pitch of 2 mod 32 words keeps the
+  // epilogue's reads (16 channels x 2 columns a warp) free of conflicts.
+  const int pitch = ncp + 2;
+  float acc[kGroup][4];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  const int kp = warp % L.ksplit, grp = warp / L.ksplit;
+  if (warp < items) {
+    // The staged row this lane points ldmatrix at, per x4: column n of
+    // tile grp * 4 + 2 q + lane / 16, channels from 8 ((lane / 8) % 2); a
+    // column without a source pixel under a tap reads the zero row.
+    const uint32_t stage_u32 = smem_u32(stage);
+    const int lhi = ilog2(L.hin);
+    int oy[2], ox[2];
+    uint32_t ebase[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = (grp * kGroup + 2 * q + (lane >> 4)) * 8 + (lane & 7);
+      const bool valid = n < ncols;
+      const int el = valid ? n >> lpo : 0;
+      const int pix = valid ? col_pixel(L, n & (npo - 1)) : 0;
+      oy[q] = valid ? pix >> lh : -4 * L.hin;     // no source pixel
+      ox[q] = pix & (L.hout - 1);
+      ebase[q] = stage_u32 + 2 * ((el << (2 * lhi)) * stride
+                                  + 8 * ((lane >> 3) & 1));
+    }
+    const uint32_t zero_u32 = smem_u32(zeros) + 16 * ((lane >> 3) & 1);
+    // k = 16 s = tap Cin + ci0: walk the taps without dividing.  A tap
+    // that no column of the group uses is skipped.
+    const int s0 = kp * kper, steps_per_tap = L.cin >> 4;
+    const int nj = min(kGroup, ntiles - grp * kGroup);
+    int tap = (s0 * 16) >> ilog2(L.cin), ci0 = s0 * 16 - tap * L.cin;
+    const uint4* ap = reinterpret_cast<const uint4*>(wtile) + s0 * 32 + lane;
+    for (int s = 0; s < kper;) {
+      const int ky = tap / 3, kx = tap - 3 * ky;
+      uint32_t rows[2];
+      bool ok[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        int iy, ix;
+        ok[q] = src_pixel(L.kind, L.hin, oy[q], ox[q], ky, kx, iy, ix);
+        rows[q] = ok[q] ? ebase[q] + 2 * (((iy << lhi) + ix) * stride + ci0)
+                        : zero_u32;
+      }
+      const bool any = __any_sync(0xffffffffu, ok[0] || (nj > 2 && ok[1]));
+      const int run = min(kper - s, steps_per_tap - (ci0 >> 4));
+      if (any) {
+        switch (nj) {
+          case 1: mma_run<1>(acc, ap, rows, run); break;
+          case 2: mma_run<2>(acc, ap, rows, run); break;
+          case 3: mma_run<3>(acc, ap, rows, run); break;
+          default: mma_run<4>(acc, ap, rows, run); break;
+        }
+      }
+      ap += run * 32;
+      s += run;
+      ci0 = 0;
+      ++tap;
+    }
+  }
+  __syncthreads();   // the partials overwrite the staged maps
+  float* part = reinterpret_cast<float*>(stage);
+  if (warp < items) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int nt = grp * kGroup + j;
+      if (nt < ntiles) {
+        float* row = part + (kp * 16 + gq) * pitch + nt * 8 + 2 * tq;
+        row[0] = acc[j][0];
+        row[1] = acc[j][1];
+        row[8 * pitch] = acc[j][2];
+        row[8 * pitch + 1] = acc[j][3];
+      }
+    }
+  }
+  __syncthreads();
+  const int m = 2 * (threadIdx.x & 7);
+  const float2 b2 = make_float2(bias[m], bias[m + 1]);
+#pragma unroll
+  for (int r = 0; r < kOutPairs; ++r) {
+    const int col = (threadIdx.x >> 3) + 64 * r;
+    if (col < ncols) {
+      float2 v = make_float2(0.f, 0.f);
+      for (int k = 0; k < L.ksplit; ++k) {
+        v.x += part[(k * 16 + m) * pitch + col];
+        v.y += part[(k * 16 + m + 1) * pitch + col];
+      }
+      epilogue_store2(L, a, st, out_index(L, rep, j0, col, tile * 16 + m),
+                      v, b2, add[r], pv[r]);
     }
   }
   __syncthreads();
 }
 
-// out[m][c] = sum_k in[m][k] w[k][c] + b[c], rounded to T.
-template <typename T>
-__device__ void dense(const T* in, int m, int c, const T* __restrict__ w,
-                      const T* __restrict__ b, T* out) {
-  for (int item = threadIdx.x; item < m * c; item += blockDim.x) {
-    const int r = item / c, col = item % c;
+// One pass of an f32 unit: each thread sums one output over the whole K
+// in order, exact f32 FMA, weights through L2.
+__device__ __forceinline__ void fma_pass(
+    const LayerDesc& L, const SamplerArgs& a, const Step<float>& st,
+    int tile, int rep, int j0, int g, const float* bias,
+    const float* stage) {
+  const int npo = L.hout * L.hout;
+  const int ncols = g * npo;
+  const int taps = L.kind == kProj ? 1 : 9;
+  const int stride = L.cin + 4;
+  const int lhi = ilog2(L.hin);
+  const float* w = static_cast<const float*>(a.weights) + L.w_off
+                   + (size_t)tile * 16 * taps * L.cin;
+  for (int i = threadIdx.x; i < ncols * 16; i += kThreads) {
+    const int m = i & 15, col = i >> 4;
+    const int lh = ilog2(L.hout);
+    const int el = col >> (2 * lh), pix = col_pixel(L, col & (npo - 1));
+    const int oy = pix >> lh, ox = pix & (L.hout - 1);
+    const size_t o = out_index(L, rep, j0, col, tile * 16 + m);
+    float add, pv;
+    epilogue_load<float>(L, a, st, tile * 16 + m, o, add, pv);
     float acc = 0.f;
-    const T* row = in + r * c;
-    for (int k = 0; k < c; ++k) acc += to_f(row[k]) * to_f(w[k * c + col]);
-    out[item] = from_f<T>(acc + to_f(b[col]));
+    for (int tap = 0; tap < taps; ++tap) {
+      int iy, ix;
+      if (!src_pixel(L.kind, L.hin, oy, ox, tap / 3, tap % 3, iy, ix)) {
+        continue;
+      }
+      const float* sp = stage + ((el << (2 * lhi)) + (iy << lhi) + ix)
+                                * stride;
+      const int k0 = tap * L.cin;
+      for (int ci = 0; ci < L.cin; ++ci) {
+        acc = fmaf(__ldg(w + frag_index(m, k0 + ci)), sp[ci], acc);
+      }
+    }
+    epilogue_store<float>(L, a, st, o, acc, bias[m], add, pv);
   }
   __syncthreads();
 }
 
-// Cross-attention of m query rows (HWC map z, c channels) against this
-// element's tk precomputed keys/values, 4 heads.
+// All passes of one (layer, tile, replica) unit; bias = the tile's 16
+// biases (shared memory).
 template <typename T>
-__device__ void attention(const T* z, int m, int c, int tk,
-                          const void* const* p, T* q, T* att, float* probs,
-                          T* out) {
-  const T* wq = static_cast<const T*>(p[0]);
-  const T* bq = static_cast<const T*>(p[1]);
-  const T* k = static_cast<const T*>(p[2]) + (size_t)blockIdx.x * tk * c;
-  const T* v = static_cast<const T*>(p[3]) + (size_t)blockIdx.x * tk * c;
-  const T* wo = static_cast<const T*>(p[4]);
-  const T* bo = static_cast<const T*>(p[5]);
-  const int hd = c / kHeads;
+__device__ __forceinline__ void run_unit(const LayerDesc& L,
+                                         const SamplerArgs& a,
+                                         const Step<T>& st, int tile, int rep,
+                                         const T* wtile, const float* bias,
+                                         T* stage, const T* zeros) {
+  const int n_e = rep < a.batch
+                      ? (a.batch - rep + L.replicas - 1) / L.replicas : 0;
+  for (int j0 = 0; j0 < n_e; j0 += L.group) {
+    const int g = min(L.group, n_e - j0);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const int ncols = g * L.hout * L.hout;
+      if (ncols > kOutPairs * kThreads / 8) __trap();   // the plan bounds it
+      float2 add[kOutPairs], pv[kOutPairs];
+      const int co = tile * 16 + 2 * (threadIdx.x & 7);
+#pragma unroll
+      for (int r = 0; r < kOutPairs; ++r) {
+        const int col = (threadIdx.x >> 3) + 64 * r;
+        add[r] = pv[r] = make_float2(0.f, 0.f);
+        if (col < ncols) {
+          epilogue_load2(L, a, st, co, out_index(L, rep, j0, col, co),
+                         add[r], pv[r]);
+        }
+      }
+      gather<T>(L, a, rep, j0, g, stage);
+      __syncthreads();
+      mma_pass(L, a, st, tile, rep, j0, g, wtile, bias, stage, zeros, add,
+               pv);
+    } else {
+      gather<T>(L, a, rep, j0, g, stage);
+      __syncthreads();
+      fma_pass(L, a, st, tile, rep, j0, g, bias, stage);
+    }
+  }
+}
+
+// Cross-attention core of element e, head h: the head's q rows and the
+// element's own keys and values staged in shared memory as f32, logits,
+// softmax in f32 (m tk <= 256 threads), probabilities rounded to T, PV.
+template <typename T>
+__device__ __forceinline__ void attention_unit(
+    const AttnDesc& D, const SamplerArgs& a, const T* k, const T* v, int e,
+    int h, float* smem) {
+  constexpr int kBatch = 8;
+  const int m = D.rows, c = D.channels, tk = D.keys, hd = c / kHeads;
+  T* ws = static_cast<T*>(a.workspace);
+  const T* q = ws + D.q_off + (size_t)e * m * c + h * hd;
+  T* att = ws + D.att_off + (size_t)e * m * c + h * hd;
+  k += (size_t)e * tk * c + h * hd;
+  v += (size_t)e * tk * c + h * hd;
+  const int kpitch = hd + 1;        // keys read 16 rows at a time
+  float* qs = smem;                 // [m][hd]
+  float* vs = qs + m * hd;          // [tk][hd]
+  float* ks = vs + tk * hd;         // [tk][kpitch]
+  float* probs = ks + tk * kpitch;  // [m][tk]
+  const int total = (m + 2 * tk) * hd;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
+    float buf[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        const int r = i / hd, d = i % hd;
+        buf[u] = r < m ? to_f(__ldcg(q + r * c + d))
+                 : r < m + tk ? to_f(v[(r - m) * c + d])
+                              : to_f(k[(r - m - tk) * c + d]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        const int r = i / hd;
+        if (r < m + tk) {
+          qs[i] = buf[u];        // q rows, then v rows
+        } else {
+          ks[(r - m - tk) * kpitch + i % hd] = buf[u];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // Thread i < m tk takes logit (i / tk, i % tk); a row's tk lanes sit in
+  // one warp, so its max and sum are warp shuffles.
   const float scale = 1.f / sqrtf((float)hd);
-  dense(z, m, c, wq, bq, q);
-  // logits[h][r][j]
-  for (int item = threadIdx.x; item < kHeads * m * tk; item += blockDim.x) {
-    const int h = item / (m * tk), r = (item / tk) % m, j = item % tk;
-    const T* qr = q + r * c + h * hd;
-    const T* kj = k + j * c + h * hd;
-    float acc = 0.f;
-    for (int d = 0; d < hd; ++d) acc += to_f(qr[d]) * to_f(kj[d]);
-    probs[item] = acc * scale;
-  }
-  __syncthreads();
-  for (int row = threadIdx.x; row < kHeads * m; row += blockDim.x) {
-    float* l = probs + row * tk;
-    float mx = l[0];
-    for (int j = 1; j < tk; ++j) mx = fmaxf(mx, l[j]);
-    float s = 0.f;
-    for (int j = 0; j < tk; ++j) {
-      l[j] = expf(l[j] - mx);
-      s += l[j];
+  if (threadIdx.x < ((m * tk + 31) & ~31)) {
+    const int i = threadIdx.x, r = i / tk, j = i % tk;
+    const bool live = i < m * tk;
+    float l = 0.f;
+    if (live) {
+      for (int d = 0; d < hd; ++d) l += qs[r * hd + d] * ks[j * kpitch + d];
     }
-    for (int j = 0; j < tk; ++j) l[j] = to_f(from_f<T>(l[j] / s));
+    l *= scale;
+    float mx = l;
+    for (int o = tk >> 1; o > 0; o >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    const float ex = expf(l - mx);
+    float sum = ex;
+    for (int o = tk >> 1; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    }
+    if (live) probs[i] = to_f(from_f<T>(ex / sum));
   }
   __syncthreads();
-  for (int item = threadIdx.x; item < m * c; item += blockDim.x) {
-    const int r = item / c, col = item % c, h = col / hd;
-    const float* pr = probs + (h * m + r) * tk;
+  for (int i = threadIdx.x; i < m * hd; i += kThreads) {
+    const int r = i / hd, d = i % hd;
+    const float* pr = probs + r * tk;
     float acc = 0.f;
-    for (int j = 0; j < tk; ++j) acc += pr[j] * to_f(v[j * c + col]);
-    att[item] = from_f<T>(acc);
+    for (int j = 0; j < tk; ++j) acc += pr[j] * vs[j * hd + d];
+    att[r * c + d] = from_f<T>(acc);
   }
   __syncthreads();
-  dense(att, m, c, wo, bo, out);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_sampler_kernel(SamplerArgs a) {
-  const int b = blockIdx.x;
-  char* base = static_cast<char*>(a.workspace) + (size_t)b * ws_bytes<T>();
-  T* ws = reinterpret_cast<T*>(base);
-  float* wf = reinterpret_cast<float*>(
-      base + ((Layout::t_elems * sizeof(T) + 15) / 16) * 16);
-  const int n = kH * kH * kLat;
-  const float* x_in = a.x_in + (size_t)b * n;
-  float* x = a.x_out + (size_t)b * n;
-  float* prev = wf + Layout::prev;
-  float* eps = wf + Layout::eps;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = x_in[i];
-    prev[i] = 0.f;
+__global__ void __launch_bounds__(kThreads, 1)
+fused_sampler_kernel(const SamplerArgs a) {
+  constexpr bool kSmemWeights = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ LayerDesc s_layers[kLayers];
+  __shared__ AttnDesc s_attn[2];
+  __shared__ int s_phases[kPhases];
+  __shared__ int s_slot[kMaxSlots][4];
+  __shared__ const T* s_kv[4];
+  __shared__ __align__(16) float s_bias[kMaxSlots][16];
+  // A zero pixel row for the transpose convs' unused taps (ldmatrix
+  // reads 16 channels at a time from any of 512).
+  __shared__ __align__(16) T s_zeros[512 + 16];
+  __shared__ __align__(8) uint64_t s_mbar;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < kLayers; ++j) s_layers[j] = a.layers[j];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s_attn[j] = a.attn[j];
+#pragma unroll
+    for (int j = 0; j < kPhases; ++j) s_phases[j] = a.phases[j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_kv[j] = static_cast<const T*>(a.kv[j]);
+  }
+  for (int i = threadIdx.x; i < kMaxSlots * 4; i += kThreads) {
+    s_slot[i / 4][i % 4] = a.plan[blockIdx.x * kMaxSlots * 4 + i];
   }
   __syncthreads();
-
-  const T* const* cw = reinterpret_cast<const T* const*>(a.conv_w);
-  const T* const* cb = reinterpret_cast<const T* const*>(a.conv_b);
-  T* xt = ws + Layout::xt;
-  T* z1 = ws + Layout::z1;
-  T* z2 = ws + Layout::z2;
-  T* z3 = ws + Layout::z3;
-  T* z3a = ws + Layout::z3a;
-  T* z4 = ws + Layout::z4;
-  T* z4a = ws + Layout::z4a;
-  T* zb = ws + Layout::zb;
-  T* u3 = ws + Layout::u3;
-  T* u2 = ws + Layout::u2;
-  T* u1 = ws + Layout::u1;
-  T* q = ws + Layout::q;
-  T* att = ws + Layout::att;
-  float* probs = wf + Layout::probs;
-
-  for (int step = 0; step < a.n_steps; ++step) {
-    const T* temb = static_cast<const T*>(a.temb) + (size_t)step * 128;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) xt[i] = from_f<T>(x[i]);
-    __syncthreads();
-    conv3x3<T>(xt, 16, kLat, cw[0], cb[0], kNF, kS1, true, nullptr, nullptr,
-               z1, nullptr);
-    conv3x3<T>(z1, 16, kNF, cw[1], cb[1], kNF * 2, kS2, true, temb, nullptr,
-               z2, nullptr);
-    conv3x3<T>(z2, 8, kNF * 2, cw[2], cb[2], kNF * 4, kS2, true, nullptr,
-               nullptr, z3, nullptr);
-    attention<T>(z3, 16, kNF * 4, 16, a.attn[0], q, att, probs, z3a);
-    conv3x3<T>(z3a, 4, kNF * 4, cw[3], cb[3], kNF * 8, kS2, true, nullptr,
-               nullptr, z4, nullptr);
-    attention<T>(z4, 4, kNF * 8, 4, a.attn[1], q, att, probs, z4a);
-    conv3x3<T>(z4a, 2, kNF * 8, cw[4], cb[4], kNF * 8, kS1, true, nullptr,
-               nullptr, zb, nullptr);
-    conv3x3<T>(zb, 2, kNF * 8, cw[5], cb[5], kNF * 4, kT, true, nullptr, z3,
-               u3, nullptr);
-    conv3x3<T>(u3, 4, kNF * 4, cw[6], cb[6], kNF * 2, kT, true, nullptr, z2,
-               u2, nullptr);
-    conv3x3<T>(u2, 8, kNF * 2, cw[7], cb[7], kNF, kT, true, nullptr, z1, u1,
-               nullptr);
-    conv3x3<T>(u1, 16, kNF, cw[8], cb[8], kLat, kS1, false, nullptr, nullptr,
-               nullptr, eps);
-    const float* c = a.coefs + step * 5;
-    const float A = c[0], B = c[1], C = c[2], P = c[3], Q = c[4];
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float xo = x[i], e = eps[i];
-      x[i] = A * xo + B * e + C * prev[i];
-      prev[i] = P * xo + Q * e;
-    }
-    __syncthreads();
+  for (int i = threadIdx.x; i < 512 + 16; i += kThreads) {
+    s_zeros[i] = from_f<T>(0.f);
   }
+  for (int i = threadIdx.x; i < kMaxSlots * 16; i += kThreads) {
+    const int sl = i / 16;
+    if (s_slot[sl][0] >= 0) {
+      s_bias[sl][i % 16] = to_f(static_cast<const T*>(a.biases)[
+          s_layers[s_slot[sl][0]].b_off + s_slot[sl][1] * 16 + i % 16]);
+    }
+  }
+
+  // bf16: this block's weight tiles, once, HBM -> shared memory by TMA.
+  const uint32_t mbar = smem_u32(&s_mbar);
+  uint32_t tile_bytes = 0;
+  if constexpr (kSmemWeights) {
+    for (int sl = 0; sl < kMaxSlots; ++sl) {
+      if (s_slot[sl][0] < 0) continue;
+      const LayerDesc& L = s_layers[s_slot[sl][0]];
+      tile_bytes += (L.kind == kProj ? 1 : 9) * L.cin * 16 * 2;
+    }
+    if (threadIdx.x == 0 && tile_bytes > 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(mbar), "r"(1) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(mbar), "r"(tile_bytes) : "memory");
+      for (int sl = 0; sl < kMaxSlots; ++sl) {
+        if (s_slot[sl][0] < 0) continue;
+        const LayerDesc& L = s_layers[s_slot[sl][0]];
+        const uint32_t bytes = (L.kind == kProj ? 1 : 9) * L.cin * 16 * 2;
+        const T* src = static_cast<const T*>(a.weights) + L.w_off
+                       + (size_t)s_slot[sl][1] * (bytes / 2);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];"
+            :: "r"(smem_u32(smem + s_slot[sl][3])), "l"(src), "r"(bytes),
+               "r"(mbar) : "memory");
+      }
+    }
+  }
+
+  // The carries: x <- x_in, prev <- 0.
+  const int n = a.batch * kLatPix * kLat;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += gridDim.x * kThreads) {
+    a.x_out[i] = a.x_in[i];
+    a.prev[i] = 0.f;
+  }
+  unsigned target = 0;
+  grid_sync(a.barrier, target);
+  if constexpr (kSmemWeights) {
+    if (tile_bytes > 0) {
+      uint32_t done = 0;
+      const uint64_t t0 = global_ns();
+      while (!done) {
+        if (global_ns() - t0 > kWaitLimitNs) __trap();
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(mbar) : "memory");
+      }
+    }
+  }
+
+  T* stage = reinterpret_cast<T*>(smem + a.scratch_off);
+  for (int step = 0; step < a.n_steps; ++step) {
+    Step<T> st;
+    st.temb = static_cast<const T*>(a.temb) + (size_t)step * kTemb;
+    st.A = a.coefs[step * 5 + 0];
+    st.B = a.coefs[step * 5 + 1];
+    st.C = a.coefs[step * 5 + 2];
+    st.P = a.coefs[step * 5 + 3];
+    st.Q = a.coefs[step * 5 + 4];
+    for (int ph = 0; ph < kPhases; ++ph) {
+      const int p = s_phases[ph];
+      if (p < 0) {
+        const AttnDesc& D = s_attn[-1 - p];
+        for (int u = blockIdx.x; u < a.batch * kHeads; u += gridDim.x) {
+          attention_unit<T>(D, a, s_kv[D.kv], s_kv[D.kv + 1], u / kHeads,
+                            u % kHeads, reinterpret_cast<float*>(stage));
+        }
+      } else {
+        for (int sl = 0; sl < kMaxSlots; ++sl) {
+          if (s_slot[sl][0] != p) continue;
+          run_unit<T>(s_layers[p], a, st, s_slot[sl][1], s_slot[sl][2],
+                      reinterpret_cast<const T*>(smem + s_slot[sl][3]),
+                      s_bias[sl], stage, s_zeros);
+        }
+      }
+      grid_sync(a.barrier, target);
+    }
+  }
+}
+
+template <typename T>
+int launch(const SamplerArgs* args, int blocks, cudaStream_t s) {
+  auto kern = fused_sampler_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kThreads,
+                                                      args->smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  err = cudaMemsetAsync(args->barrier, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* params[] = {const_cast<SamplerArgs*>(args)};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    dim3(blocks), dim3(kThreads), params,
+                                    args->smem_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace bytes per batch element; dtype 0 = float32, 1 = bfloat16.
-size_t fused_sampler_workspace_bytes(int dtype) {
-  return dtype == 0 ? ws_bytes<float>() : ws_bytes<__nv_bfloat16>();
-}
-
 size_t fused_sampler_args_size() { return sizeof(SamplerArgs); }
 
-// Launches the trajectory on `stream`; returns cudaGetLastError().
-int fused_ddim_sample(const SamplerArgs* args, int dtype, void* stream) {
+// The card's SM count (the grid) and the shared memory a block may opt
+// into; returns the CUDA error.
+int fused_sampler_device_limits(int device, int* sms, int* smem_optin) {
+  cudaDeviceProp prop;
+  const cudaError_t err = cudaGetDeviceProperties(&prop, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *sms = prop.multiProcessorCount;
+  *smem_optin = static_cast<int>(prop.sharedMemPerBlockOptin);
+  return 0;
+}
+
+// Launches the trajectory on `stream` as one cooperative grid of `blocks`
+// blocks; dtype 0 = float32, 1 = bfloat16.  Returns the CUDA error of the
+// launch (0 = launched).
+int fused_ddim_sample(const SamplerArgs* args, int dtype, int blocks,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    fused_sampler_kernel<float><<<args->batch, kThreads, 0, s>>>(*args);
-  } else {
-    fused_sampler_kernel<__nv_bfloat16><<<args->batch, kThreads, 0, s>>>(
-        *args);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 0 ? launch<float>(args, blocks, s)
+                    : launch<__nv_bfloat16>(args, blocks, s);
 }
 
 }  // extern "C"

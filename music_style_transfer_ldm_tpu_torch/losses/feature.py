@@ -20,6 +20,7 @@ from music_style_transfer_ldm_tpu_torch.losses.lpips import LPIPS
 from music_style_transfer_ldm_tpu_torch.losses.vggish import (
     VGGishFeatures, vggish_feature_distance,
 )
+from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 
 @dataclasses.dataclass
@@ -38,10 +39,11 @@ class FeatureMetric:
 
 
 def build_feature_metric(kind: str, dtype: torch.dtype = torch.float32,
-                         seed: int = 0, device="cpu",
+                         seed: int = 0, device="cuda",
                          impl: str = "auto") -> FeatureMetric:
     """A frozen metric whose random init comes from ``seed``, on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         if kind == "lpips":

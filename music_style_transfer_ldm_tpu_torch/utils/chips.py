@@ -11,10 +11,12 @@ import os
 
 import torch
 
-# Largest bucket routed to the fused trajectory kernel.  Same routing as
-# the JAX package; the crossover with the scan route is not measured on
-# this card yet (override: MSTLDM_FUSED_BUCKET_MAX).
-_DEFAULT_FUSED_BUCKET_MAX = 4
+# Largest bucket routed to the fused trajectory kernel (override:
+# MSTLDM_FUSED_BUCKET_MAX).  Measured on an NVIDIA H100 80GB HBM3 at
+# 700 W by chip_smoke.py (bf16, 49 steps): kernel A beats the scan route
+# at every bucket it takes, 1 to FUSED_MAX_BATCH = 8 (about 6 ms against
+# 75-120 ms per trajectory), so there is no crossover below 8.
+_DEFAULT_FUSED_BUCKET_MAX = 8
 
 
 def fused_bucket_max() -> int:

@@ -22,12 +22,13 @@ from music_style_transfer_ldm_tpu_torch.models.ldm import (
     build_ldm, content_style_transfer, match_moments,
 )
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
-    fused_content_style_transfer,
+    FUSED_MAX_BATCH, fused_content_style_transfer,
 )
 from music_style_transfer_ldm_tpu_torch.serving import engine as engine_mod
 from music_style_transfer_ldm_tpu_torch.serving.engine import (
     EngineConfig, InferenceEngine,
 )
+from music_style_transfer_ldm_tpu_torch.utils import chips
 
 TRANSFER_ATOL = 1e-4   # decoded images in [0, 1], f32, 11 steps
 GROUPING_ATOL = 1e-5   # same request alone or batched (CPU conv sum order)
@@ -103,7 +104,9 @@ def test_match_moments_matches_jax(pair):
 @pytest.fixture(scope="module")
 def engine(pair):
     _, _, port, _, _ = pair
-    eng = InferenceEngine(port, EngineConfig(sampler="fused", **QUICK))
+    # The limit is pinned so that the ladder exercises both routes.
+    eng = InferenceEngine(port, EngineConfig(sampler="fused",
+                                             fused_bucket_max=4, **QUICK))
     eng.warmup()
     return eng
 
@@ -140,6 +143,19 @@ def test_padding_cropping_and_routes(pair, engine, monkeypatch):
     assert after["batches"] - before["batches"] == 1
     engine.transfer_batch(content, style, seeds=np.arange(8))
     assert calls == [("fused", 4), ("scan", 8)]
+
+
+def test_fused_bucket_max_default(pair, monkeypatch):
+    """The fused kernel beat the scan route at every bucket on the card
+    (chip_smoke.py), so by default the engine sends it every bucket it
+    takes; the environment still overrides."""
+    monkeypatch.delenv("MSTLDM_FUSED_BUCKET_MAX", raising=False)
+    assert chips.fused_bucket_max() == FUSED_MAX_BATCH == 8
+    eng = InferenceEngine(pair[2], EngineConfig(sampler="fused", **QUICK))
+    assert [eng.uses_fused(b) for b in (1, 2, 4, 8, 16)] == [
+        True, True, True, True, False]
+    monkeypatch.setenv("MSTLDM_FUSED_BUCKET_MAX", "2")
+    assert chips.fused_bucket_max() == 2
 
 
 def test_split_above_top_bucket(pair, monkeypatch):

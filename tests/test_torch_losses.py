@@ -457,9 +457,9 @@ def test_basic_losses(weighted):
 
 
 def test_build_feature_metric_is_seeded():
-    a = build_feature_metric("vggish", seed=3)
-    b = build_feature_metric("vggish", seed=3)
-    c = build_feature_metric("lpips", seed=3)
+    a = build_feature_metric("vggish", seed=3, device="cpu")
+    b = build_feature_metric("vggish", seed=3, device="cpu")
+    c = build_feature_metric("lpips", seed=3, device="cpu")
     for (k, x), (_, y) in zip(a.module.state_dict().items(),
                               b.module.state_dict().items()):
         np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=k)
@@ -468,4 +468,16 @@ def test_build_feature_metric_is_seeded():
     w = a.module.conv4_2.weight
     assert abs(w.std().item() - (1.0 / (9 * 512)) ** 0.5) < 2e-3
     with pytest.raises(ValueError, match="unknown feature extractor"):
-        build_feature_metric("vgg")
+        build_feature_metric("vgg", device="cpu")
+
+
+def test_build_feature_metric_defaults_to_the_card():
+    """Like every entry point of the port, the metric goes to the card
+    unless the caller asks for the CPU: without a card it raises."""
+    if torch.cuda.is_available():
+        assert next(build_feature_metric("vggish").module.parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_feature_metric("vggish")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_feature_metric("lpips", device="cuda")

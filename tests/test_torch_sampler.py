@@ -133,14 +133,31 @@ def test_scan_samplers_match_jax(pair, sampler, eta, n, steps):
                                np.asarray(want), atol=SCAN_ATOL)
 
 
+def _batch(pair, batch):
+    """Styles and latents for `batch` elements: the fixture's four, then
+    fresh draws."""
+    _, _, _, styles, z_t = pair
+    rng = np.random.RandomState(11)
+    extra = max(0, batch - len(styles))
+    styles = np.concatenate([styles, rng.rand(extra, 128, 128, 1)
+                             .astype(np.float32)])
+    z_t = np.concatenate([z_t, rng.randn(extra, 16, 16, 32)
+                          .astype(np.float32)])
+    return styles[:batch], z_t[:batch]
+
+
 @pytest.mark.parametrize("batch,sampler,n,steps,atol", [
     (1, "ddim", 12, None, FUSED_ATOL),
     (4, "ddim", 12, None, FUSED_ATOL),
     (1, "dpm++", 14, 7, DPM_ATOL),
-    (4, "dpm++", 14, 7, DPM_ATOL)])
+    (4, "dpm++", 14, 7, DPM_ATOL),
+    (3, "ddim", 12, None, FUSED_ATOL),
+    (8, "ddim", 12, None, FUSED_ATOL),
+    (8, "dpm++", 14, 7, DPM_ATOL)])
 def test_fused_plain_version_matches_jax(pair, batch, sampler, n, steps,
                                          atol):
-    model, variables, port, styles, z_t = pair
+    model, variables, port, _, _ = pair
+    styles, z_t = _batch(pair, batch)
     emb = _emb(model, variables, styles[:batch])
     times = jddim.transfer_time_grid(n, steps)
     ops, names = jfs.pack_operands(variables["params"]["unet"], emb,
@@ -160,19 +177,21 @@ def test_fused_plain_version_matches_jax(pair, batch, sampler, n, steps,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
 
 
-def test_fused_eta_matches_scan(pair):
+@pytest.mark.parametrize("batch", [2, 3, 8])
+def test_fused_eta_matches_scan(pair, batch):
     """eta > 0 folds into the same A/B update as the scan DDIM step."""
-    _, _, port, styles, z_t = pair
-    emb = port.style_embed(torch.tensor(styles[:2]))
+    port = pair[2]
+    styles, z_t = _batch(pair, batch)
+    emb = port.style_embed(torch.tensor(styles))
     times = ddim.transfer_time_grid(10)
     ops = fs.pack_operands(port.unet, emb, port.schedule, times, 0.5,
-                           batch=2)
-    got = fs.fused_ddim_sample(ops, torch.tensor(z_t[:2]), len(times) - 1)
+                           batch=batch)
+    got = fs.fused_ddim_sample(ops, torch.tensor(z_t), len(times) - 1)
     temb = {k: v.permute(0, 3, 1, 2) for k, v in emb.items()}
     with torch.no_grad():
         want = ddim.ddim_sample(lambda x, t: port.unet(x, t, temb).float(),
                                 port.schedule,
-                                torch.tensor(z_t[:2]).permute(0, 3, 1, 2),
+                                torch.tensor(z_t).permute(0, 3, 1, 2),
                                 times, eta=0.5)
     np.testing.assert_allclose(got.numpy(),
                                want.permute(0, 2, 3, 1).numpy(),
@@ -235,3 +254,120 @@ def test_trajectory_cost():
     cost = fs.trajectory_cost(ops, 1)
     assert cost["flops"] // 2 == 47_185_920 + 4_341_760
     assert cost["bytes"] > 4 * 6_000_000
+
+
+# ---------------------------------------------------------------------------
+# The kernel's packed layout and launch plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_unpack_gives_back_the_weights(pair, dtype):
+    """Every conv and projection: pack_operands -> unpack is the module's
+    weight and bias, exactly, in the working type."""
+    port = pair[2]
+    unet = {torch.float32: port.unet}.get(dtype)
+    if unet is None:
+        unet = LDM().eval().unet
+        unet.load_state_dict(port.unet.state_dict())
+        unet.to(dtype)
+    emb = port.style_embed(torch.zeros(1, 128, 128, 1))
+    ops = fs.pack_operands(unet, emb, port.schedule,
+                           ddim.transfer_time_grid(10), 0.0)
+    assert ops.weights.dtype == ops.biases.dtype == dtype
+    got = fs.unpack(ops)
+    assert list(got) == list(fs._NAMES)
+    for name, path, *_ in fs._LAYERS:
+        mod = unet.get_submodule(path)
+        w, b = got[name]
+        assert w.shape == mod.weight.shape, name
+        assert torch.equal(w, mod.weight.to(dtype)), name
+        assert torch.equal(b, mod.bias.to(dtype)), name
+
+
+def test_weights_sit_in_mma_fragment_order(pair):
+    """The packed A operand of mma.sync.m16n8k16, as PTX states it: lane
+    4g + t, register r, half h of a tile's k-step s holds W[m][k] with m =
+    g + 8 (r & 1), k = 16 s + 2 t + h + 8 (r >> 1)."""
+    port = pair[2]
+    emb = port.style_embed(torch.zeros(1, 128, 128, 1))
+    ops = fs.pack_operands(port.unet, emb, port.schedule,
+                           ddim.transfer_time_grid(10), 0.0)
+    rng = np.random.RandomState(3)
+    offset = 0
+    for name, path, kind, cin, cout, *_ in fs._LAYERS:
+        mat = fs._module_matrix(port.unet.get_submodule(path).weight, kind)
+        k_total = mat.shape[1]
+        assert k_total == (1 if kind == "p" else 9) * cin
+        for _ in range(64):
+            tile, s = rng.randint(cout // 16), rng.randint(k_total // 16)
+            lane, r, h = rng.randint(32), rng.randint(4), rng.randint(2)
+            g, t = divmod(lane, 4)
+            m, k = g + 8 * (r & 1), 16 * s + 2 * t + h + 8 * (r >> 1)
+            idx = (offset + tile * 16 * k_total
+                   + ((s * 32 + lane) * 4 + r) * 2 + h)
+            assert ops.weights[idx] == mat[tile * 16 + m, k], name
+        offset += cout * k_total
+    assert offset == ops.weights.numel()
+
+
+@pytest.mark.parametrize("n_blocks", [132, 114])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan(n_blocks, dtype):
+    """Every (layer, tile, replica) slot on exactly one block, never two
+    slots of one layer on a block, bf16 tiles inside the opt-in shared
+    memory of an H100 block, and every pass inside its scratch."""
+    limit = 232448
+    plan = fs.launch_plan(n_blocks, limit, dtype)
+    assert len(plan["slots"]) == n_blocks
+    seen = set()
+    for slots, used in zip(plan["slots"], plan["weight_bytes"]):
+        layers = [j for j, *_ in slots]
+        assert len(layers) == len(set(layers))
+        nbytes = 0
+        for j, tile, rep, off in sorted(slots, key=lambda x: x[3]):
+            _, _, kind, cin, *_ = fs._LAYERS[j]
+            tile_bytes = (1 if kind == "p" else 9) * cin * 16 * 2
+            if dtype == torch.bfloat16:
+                assert off == nbytes and off % 512 == 0
+                nbytes += tile_bytes
+            seen.add((j, tile, rep))
+        assert used == nbytes
+    want = {(j, t, r) for j, (name, _, _, _, cout, *_) in
+            enumerate(fs._LAYERS) for t in range(cout // 16)
+            for r in range(fs._REPLICAS[name])}
+    assert seen == want
+    assert plan["smem_bytes"] + fs._STATIC_SMEM <= limit
+    if dtype == torch.bfloat16:
+        assert max(plan["weight_bytes"]) <= plan["scratch_off"]
+        # all 12.3 MB of bf16 weights (and the replicas) stay on chip
+        total = 2 * sum(w for w, _ in fs._layer_sizes())
+        assert 12.2e6 < total < 12.4e6
+        assert sum(plan["weight_bytes"]) >= total
+    for j, g in enumerate(plan["groups"]):
+        assert 1 <= g <= fs.FUSED_MAX_BATCH
+        assert fs._fits(j, g, dtype)
+        if g < fs.FUSED_MAX_BATCH:
+            assert not fs._fits(j, g + 1, dtype)
+    with pytest.raises(RuntimeError, match="do not fit"):
+        fs.launch_plan(16, limit, torch.bfloat16)
+
+
+def test_sum_order_does_not_depend_on_the_batch():
+    """The k-split of each layer is fixed and divides its k-steps, every
+    layer's maps fit their buffers, and the workspace holds every buffer
+    of every element apart."""
+    for name, _, kind, cin, *_ in fs._LAYERS:
+        steps = (1 if kind == "p" else 9) * cin // 16
+        assert steps % fs._KSPLIT[name] == 0, name
+    per = dict(fs._BUFFERS)
+    for _, _, _, cin, cout, hin, hout, src, dst, skip in fs._LAYERS:
+        assert src == "x" or per[src] >= hin * hin * cin
+        assert dst == "eps" or per[dst] >= hout * hout * cout
+        assert skip is None or per[skip] == hout * hout * cout
+    for batch in (1, 3, 8):
+        ws = fs.workspace_layout(batch)
+        ends = sorted((ws[name], ws[name] + batch * per)
+                      for name, per in fs._BUFFERS)
+        assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+        assert ends[-1][1] == ws["total"]
