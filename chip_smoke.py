@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero:
      trunk (E), all CUDA C++ for sm_90a, in parallel, while Triton
      compiles the DDIM update kernel (B);
   3. every kernel against its plain PyTorch version at the main paths'
-     shapes, with the tolerances stated below;
+     shapes, with the tolerances stated below; kernel D's six-column
+     statistics and its run-to-run determinism; kernel E's five bf16
+     convs one by one at B=128 (forward and input gradient, integer and
+     random operands, against exact f32 tap sums), timed beside their
+     bound and a cuDNN bf16 call;
   4. the image-level path: SDEdit transfer served by the InferenceEngine
      at full width (random weights from seed 0, bf16), on the fused route
      (every bucket of the ladder) and, through a second engine, the scan
@@ -89,6 +93,29 @@ TOL_E_BF16_FLOOR, TOL_E_BF16_VALUE = 0.05, 0.02
 # of this script, so that run is held to 1e-3.
 TOL_STEP_LOSS, TOL_STEP_GRAD, TOL_STEP_GRAD_ROUTED = 1e-5, 1e-4, 1e-3
 
+# Kernel D's statistics [B, 6] vs the plain version's: each column to
+# 1e-5 of its largest magnitude over the batch (single-pass moments vs
+# two-pass and direct sums).
+TOL_D_STATS = 1e-5
+# Kernel E's bf16 convs (tensor cores) vs conv_relu's rounding points /
+# an f32 transposed conv, on the same bf16-rounded operands, summed tap
+# by tap in exact f32 (cuBLAS SGEMM, TF32 off; cuDNN's f32 algorithms at
+# these shapes are not exact on integers).  Integer-valued operands:
+# every f32 sum is exact, so 0 mismatches.  Random forward: at most one bf16
+# ulp on every element, an ulp taken no lower than at 2^-11 of the map's
+# max (below it the f32 rounding of sums of up to 4,608 products, in other
+# orders, exceeds a bf16 ulp of the result), and one-ulp flips on at most
+# 1e-3 of the elements.  Random input gradient (f32 out): max abs error
+# 1e-5 of the max.
+TOL_CONV_FLIPS, TOL_DGRAD_OF_MAX = 1e-3, 1e-5
+# Kernel E bf16 on an integer-valued trunk: the maps are bit-identical to
+# the plain bf16 trunk's, so the value agrees to the metrics' f32 sums.
+TOL_E_INT_BF16 = 1e-5
+# The VGGish trunk's convs at 128x128: (name, H = W, Cin, Cout).
+TRUNK_CONVS = (("conv2", 64, 64, 128), ("conv3_1", 32, 128, 256),
+               ("conv3_2", 32, 256, 256), ("conv4_1", 16, 256, 512),
+               ("conv4_2", 16, 512, 512))
+
 H100_BF16_FLOPS = 989e12   # dense, tensor cores
 H100_F32_FLOPS = 67e12     # outside the tensor cores
 H100_BYTES = 3.35e12       # HBM3
@@ -101,6 +128,124 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def cuda_ms(fn, reps):
+    """Mean ms per call of fn over reps calls, CUDA events, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def conv_taps_f32(x, w9, dgrad):
+    """A 3x3 pad-1 conv (or, with dgrad, its input gradient) of NHWC f32
+    x with w9 [9, Cin, Cout] (tap = 3 ky + kx): nine f32 matmuls of the
+    shifted maps, exact on integer-valued operands."""
+    import torch
+    n, h, w, _ = x.shape
+    pad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for tap in range(9):
+        dy, dx = tap // 3 - 1, tap % 3 - 1
+        if dgrad:
+            dy, dx = -dy, -dx
+        src = pad[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        y = src @ (w9[tap].T if dgrad else w9[tap])
+        acc = y if acc is None else acc + y
+    return acc
+
+
+def trunk_conv_checks(ft, vgg16, ivgg16, B, card, g) -> dict:
+    """Kernel E's bf16 convs one by one at the trunk's shapes for batch B
+    (forward on both branches, 2B images; input gradient on the pred
+    half, B): held against conv_relu's rounding points and an f32
+    transposed conv of the same bf16-rounded operands (``conv_taps_f32``),
+    on integer-valued and random operands, and timed beside their bound
+    and one cuDNN bf16 channels_last call."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    out = {}
+    for name, hw, cin, cout in TRUNK_CONVS:
+        r = out[name] = {}
+        conv, iconv = getattr(vgg16, name), getattr(ivgg16, name)
+        for tag, c in (("int", iconv), ("rand", conv)):
+            if tag == "int":
+                x = torch.randint(0, 4, (2 * B, hw, hw, cin), device=dev,
+                                  generator=g).to(bf)
+                gy = torch.randint(-2, 3, (B, hw, hw, cout), device=dev,
+                                   generator=g).to(bf)
+            else:
+                x = torch.relu(torch.randn(2 * B, hw, hw, cin, device=dev,
+                                           generator=g)).to(bf)
+                gy = (torch.randn(B, hw, hw, cout, device=dev, generator=g)
+                      * 1e-3).to(bf)
+            y = ft.trunk_conv(x, c)
+            dx = ft.trunk_conv_dgrad(gy, c)
+            w9 = ft.dgrad_weights(c, bf).float()
+            y_ref = torch.relu((conv_taps_f32(x.float(), w9, False)
+                                + c.bias.detach().float()).to(bf))
+            dx_ref = conv_taps_f32(gy.float(), w9, True)
+            torch.cuda.synchronize()
+            yk, yr = y.float(), y_ref.float()
+            diff = (yk - yr).abs()
+            if tag == "int":
+                r["int_fwd_mismatches"] = int((diff > 0).sum())
+                r["int_dgrad_mismatches"] = int((dx != dx_ref).sum())
+                continue
+            top = torch.maximum(yk.abs(), yr.abs()).clamp_min(
+                2.0 ** -11 * yr.abs().max())
+            r["fwd_ulps_max"] = (diff / (top * 2.0 ** -7)).max().item()
+            r["fwd_flip_share"] = (diff > 0).float().mean().item()
+            r["dgrad_of_max"] = ((dx - dx_ref).abs().max()
+                                 / dx_ref.abs().max()).item()
+        # times: the kernels, their bound, cuDNN bf16 channels_last
+        wf, wd = ft.forward_weights(conv, bf), ft.dgrad_weights(conv, bf)
+        r["fwd_ms"] = cuda_ms(lambda: ft.trunk_conv(x, conv, wf), 10)
+        r["dgrad_ms"] = cuda_ms(lambda: ft.trunk_conv_dgrad(gy, conv, wd),
+                                10)
+        xc = x.permute(0, 3, 1, 2)          # NHWC memory: channels_last
+        gc = gy.permute(0, 3, 1, 2)
+        wc = conv.weight.detach().to(bf).contiguous(
+            memory_format=torch.channels_last)
+        bc = conv.bias.detach().to(bf)
+        r["cudnn_fwd_ms"] = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=1),
+                                    10)
+        r["cudnn_dgrad_ms"] = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+            (B, cin, hw, hw), wc, gc, padding=1), 10)
+        macs = hw * hw * cin * cout * 9
+        wbytes = 9 * cin * cout * 2
+        for key, n_img, in_c, out_bytes in (
+                ("fwd", 2 * B, cin, 2 * B * hw * hw * cout * 2),
+                ("dgrad", B, cout, B * hw * hw * cin * 4)):
+            flops = 2 * macs * n_img
+            nbytes = n_img * hw * hw * in_c * 2 + wbytes + out_bytes
+            r[f"{key}_bound_ms"] = 1e3 * max(flops / H100_BF16_FLOPS,
+                                             nbytes / H100_BYTES)
+            r[f"{key}_tflops"] = flops / (r[f"{key}_ms"] * 1e-3) / 1e12
+        print(f"time {card} kernel E conv {name} {hw}x{hw} {cin}->{cout} "
+              f"bf16 B={B}: forward (2B) {r['fwd_ms']:.3f} ms "
+              f"({r['fwd_tflops']:.0f} TFLOP/s; bound "
+              f"{r['fwd_bound_ms']:.4f}, cuDNN {r['cudnn_fwd_ms']:.3f}), "
+              f"input grad (B) {r['dgrad_ms']:.3f} ms "
+              f"({r['dgrad_tflops']:.0f} TFLOP/s; bound "
+              f"{r['dgrad_bound_ms']:.4f}, cuDNN {r['cudnn_dgrad_ms']:.3f});"
+              f" integer mismatches fwd {r['int_fwd_mismatches']}, dgrad "
+              f"{r['int_dgrad_mismatches']}; random fwd max "
+              f"{r['fwd_ulps_max']:.3g} ulp, flips {r['fwd_flip_share']:.3g}"
+              f", dgrad max abs / max {r['dgrad_of_max']:.3g}")
+        del x, gy, y, dx, y_ref, dx_ref
+    return out
 
 
 def main() -> int:
@@ -328,13 +473,17 @@ def main() -> int:
     w8 = torch.ones(8, device=dev)
     w8[-1] = 0.0
     err_d = {"m": 0.0, "loss": 0.0, "abs": 0.0, "grad_excess": -1.0,
-             "dw_excess": -1.0}
+             "dw_excess": -1.0, "stats_of_max": [0.0] * nm.N_STATS}
     for h, w_, c in ((128, 128, 64), (64, 64, 128), (32, 32, 256),
                      (32, 32, 256), (16, 16, 512), (16, 16, 512)):
         p = torch.relu(torch.randn(8, h, w_, c, device=dev, generator=g))
         t = torch.relu(torch.randn(8, h, w_, c, device=dev, generator=g))
-        mk, _ = nm.normalized_mse_forward(p, t)
-        mr, _ = nm.normalized_mse_forward_reference(p, t)
+        mk, sk = nm.normalized_mse_forward(p, t)
+        mr, sr = nm.normalized_mse_forward_reference(p, t)
+        col_err = ((sk - sr).abs().max(0).values
+                   / sr.abs().max(0).values).tolist()
+        err_d["stats_of_max"] = [max(a, b) for a, b in
+                                 zip(err_d["stats_of_max"], col_err)]
         out = {}
         for name, fn in (("k", nm.normalized_mse_kernel),
                          ("r", nm.normalized_mse_reference)):
@@ -361,6 +510,12 @@ def main() -> int:
           "kernel D's metric disagrees with its plain version")
     check(err_d["grad_excess"] <= 0.0 and err_d["dw_excess"] <= 0.0,
           "kernel D's gradients disagree with their plain version")
+    print(f"kernel D statistics [B, 6] (mu_p, s_p, mu_t, s_t, a0, b0) vs "
+          f"plain f32 at the six shapes: max abs error / column max "
+          f"{[float(f'{e:.3g}') for e in err_d['stats_of_max']]} (tol "
+          f"{TOL_D_STATS})")
+    check(max(err_d["stats_of_max"]) <= TOL_D_STATS,
+          "kernel D's statistics disagree with their plain version")
     p16 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
                                  generator=g)).bfloat16()
     t16 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
@@ -372,6 +527,15 @@ def main() -> int:
     print(f"kernel D vs plain bf16 B=128 layer 1: loss rel "
           f"{err_d['bf16_loss']:.3g} (tol {TOL_D_BF16})")
     check(err_d["bf16_loss"] <= TOL_D_BF16, "kernel D (bf16) disagrees")
+    runs = [nm.normalized_mse_forward(x16, x16.flip(0)) for x16 in
+            (p16, p16, t16, t16)]
+    same = all(torch.equal(a, b) for a, b in zip(runs[0] + runs[2],
+                                                 runs[1] + runs[3]))
+    err_d["deterministic"] = same
+    print(f"kernel D forward, bf16 B=128 layer 1, two calls on the same "
+          f"inputs (twice): bit-identical m and statistics: {same}")
+    check(same, "kernel D's forward is not bit-identical run to run")
+    del runs
 
     # kernel E: full VGGish widths, 128x128
     def e_run(mod, fn, pred, targ, w):
@@ -452,6 +616,29 @@ def main() -> int:
         check(kern_err <= bar and abs(vke - v32) <= TOL_E_BF16_VALUE * v32,
               f"kernel E (bf16, B={B}) strays from the f32 oracle")
         del g32, gpl, gke
+    ivgg16 = VGGishFeatures(torch.bfloat16).to(dev)
+    ivgg16.load_state_dict(ivgg.state_dict())
+    ivv = ft.fused_vggish_distance_value(ivgg16, ipred, itarg, w8).item()
+    ivp = ft.fused_vggish_distance_reference(ivgg16, ipred, itarg,
+                                             w8).item()
+    err_e["int_bf16_value"] = abs(ivv - ivp) / ivp
+    print(f"kernel E bf16 B=8 integer trunk (bit-identical maps) vs the "
+          f"plain bf16 version: value rel {err_e['int_bf16_value']:.3g} "
+          f"(tol {TOL_E_INT_BF16})")
+    check(err_e["int_bf16_value"] <= TOL_E_INT_BF16,
+          "kernel E (bf16) disagrees with its plain version on exact maps")
+    convs = trunk_conv_checks(ft, vgg16, ivgg16, 128, card, g)
+    err_e["convs"] = {k: {m: v[m] for m in (
+        "int_fwd_mismatches", "int_dgrad_mismatches", "fwd_ulps_max",
+        "fwd_flip_share", "dgrad_of_max")} for k, v in convs.items()}
+    for name, r in convs.items():
+        check(r["int_fwd_mismatches"] == 0 and r["int_dgrad_mismatches"] == 0,
+              f"kernel E {name}: integer operands must give exact results")
+        check(r["fwd_ulps_max"] <= 1.0 and r["fwd_flip_share"]
+              <= TOL_CONV_FLIPS, f"kernel E {name} forward strays from "
+              "conv_relu by more than one bf16 ulp")
+        check(r["dgrad_of_max"] <= TOL_DGRAD_OF_MAX,
+              f"kernel E {name} input gradient disagrees")
     results["max_abs_err"] = {"ddim_update": err_b, "fused_ddim_sample_f32":
                               err_a, "fused_ddim_sample_bf16_decoded":
                               err_a16, "fused_mel_unit_image": err_c,
@@ -728,18 +915,6 @@ def main() -> int:
     results["max_abs_err"]["f32_step"] = err_step
 
     # ---- 7. times -------------------------------------------------------
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
                    "scan_engine_request_s": {}, "kernel_a_f32_ms": {}}
@@ -885,6 +1060,13 @@ def main() -> int:
                   f"ms, bound {times['bound_e_ms'][key]:.4f} ms (operations: "
                   f"{cost['flops'] / 1e12:.3f} TFLOP at 989 TFLOP/s)")
         del f1
+    # E's yardstick: the trunk's five convs as cuDNN bf16 calls (phase 3)
+    e_library_ms = sum(r["cudnn_fwd_ms"] for r in convs.values())
+    times["trunk_convs_b128"] = convs
+    times["library_e_ms"] = e_library_ms
+    print(f"time {card} kernel E value B=128: the cuDNN chain of its five "
+          f"convs (bf16, channels_last) {e_library_ms:.3f} ms; the kernel's "
+          f"five convs {sum(r['fwd_ms'] for r in convs.values()):.3f} ms")
     # the training step at B=128, bf16, defaults
     trainer_t = LDMTrainer(default_config())
     state_t = trainer_t.init_state(0)
@@ -918,9 +1100,12 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         state_t, _ = trainer_t._step(state_t, c128, s128)
         torch.cuda.synchronize()
-    groups = {"E (trunk kernels)": ("conv3x3_kernel", "maxpool2_kernel",
-                                    "unpool2_kernel"),
-              "D (normalized MSE)": ("nm_",)}
+    # E: conv3x3_wgmma_kernel (bf16), conv3x3_kernel (f32), the pools;
+    # D: nm_forward_kernel, nm_backward_kernel
+    groups = {"E (trunk kernels)": ("conv3x3_wgmma_kernel", "conv3x3_kernel",
+                                    "maxpool2_kernel", "unpool2_kernel"),
+              "D (normalized MSE)": ("nm_forward_kernel",
+                                     "nm_backward_kernel")}
     by_group: dict = {}
     device_total = 0.0
     kernels_us = []
@@ -997,7 +1182,7 @@ def main() -> int:
          "ms": times["kernel_e_ms"]["value_b128"],
          "plain_ms": times["plain_e_ms"]["value_b128"],
          "bound_ms": times["bound_e_ms"]["value_b128"],
-         "bound_by": "operations", "library_ms": None},
+         "bound_by": "operations", "library_ms": e_library_ms},
     ]
     by_path = {"normalized_mse": ("normalized_mse_forward",
                                   "normalized_mse_backward"),
@@ -1009,10 +1194,13 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**results, "kernels": kernels}, f, indent=1)
-    print("library call: none (no single PyTorch call computes any of the "
-          "five functions); kernel times in the line below: A and C at B=1, "
-          "B at [8,16,16,32], D's forward at layer 1 bf16 B=128, E's value "
-          "at bf16 B=128; the other shapes beside them above")
+    print("library call: none for A-D (no single PyTorch call computes "
+          "them); E's is the sum of one cuDNN bf16 channels_last F.conv2d "
+          "per trunk conv at B=128 (2B images), "
+          f"{e_library_ms:.3f} ms (the port never calls it); kernel times "
+          "in the line below: A and C at B=1, B at [8,16,16,32], D's "
+          "forward at layer 1 bf16 B=128, E's value at bf16 B=128; the "
+          "other shapes beside them above")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

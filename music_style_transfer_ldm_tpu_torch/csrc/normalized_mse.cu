@@ -5,11 +5,11 @@
 // feature maps p, t flattened to [B, N] (bf16 or f32; every statistic in
 // f32, eps = 1e-8):
 //
-//   mu_p = mean(p),  s_p = sqrt(mean((p - mu_p)^2))     (two passes)
+//   mu_p = mean(p),  s_p = sqrt(mean((p - mu_p)^2))
 //   mu_t, s_t likewise
 //   m    = mean((p / (s_p + eps) - t / (s_t + eps))^2)
 //
-// and the closed-form backward, one launch chain for dp or for dt:
+// and the closed-form backward, one launch for dp or for dt:
 //
 //   u  = (2 / N) uscale (p / (s_p + eps) - t / (s_t + eps))
 //   dp = u / (s_p + eps) - a (p - mu_p) / ((s_p + eps)^2 N s_p),  a = sum(u p)
@@ -21,19 +21,39 @@
 //
 // What bounds it on the H100: bytes.  The forward must read p and t once
 // (layer 1 of VGGish at B = 128 in bf16: 537 MB, 0.16 ms at 3.35 TB/s);
-// it has a handful of operations per element.
+// the backward reads them once and writes the gradient once (805 MB,
+// 0.24 ms).  Each has a handful of operations per element.  A sample
+// (2 x 1 M elements at layer 1) fits neither one SM nor, across the
+// batch, the 50 MB L2, so the statistics cannot take two passes over a
+// kept chunk.
 //
-// Design (the simple first version).  A sample does not fit one SM
-// (layer 1 is 2 x 1 M elements), so each sample is cut into chunks of
-// kChunk elements, one CTA each, grid (chunks, B).  Reductions are
-// deterministic with no float atomics: each CTA writes its partial sum
-// to a workspace, and every consumer reduces a sample's partials in one
-// fixed order (a block reduction over a fixed assignment), so all CTAs
-// of a sample see bit-identical statistics.  The forward is four
-// launches (sums; centred squares; squared differences; finalize), so it
-// reads p and t three times; the backward is two (the dot product a or
-// b; the elementwise gradient), reading them twice.  A single pass over
-// L2-resident samples is later work.
+// Forward: one launch, one read.  Grid (chunks, B), kChunk elements per
+// CTA, 32 per thread.  A thread keeps its 32 p and t values in registers,
+// shifted by the sample's first element (K_p = p[b, 0], K_t = t[b, 0]:
+// the moments stay exact where |mean| >> std), and reduces them in two
+// passes to centred moments (n, mu_p - K_p, mu_t - K_t, M2_p, M2_t, C_pt);
+// the CTA merges its threads' moments by Chan's formula in a fixed tree
+// (a warp butterfly, then the warps in order),
+// writes the chunk's moments to the workspace and takes a per-sample
+// ticket (atomicAdd after __threadfence).  The CTA that draws the last
+// ticket merges the sample's chunks by the same fixed tree over chunk
+// index, computes m and the statistics [B, 6] from the merged moments in
+// f64 (one thread per sample), and resets the ticket to 0 for the next
+// call.  No float atomics, and the merge order does not
+// depend on which CTA finishes last, so the result is bit-identical from
+// run to run.  With A = s_p + eps, B = s_t + eps, e = mu_p / A - mu_t / B:
+//
+//   m  = (M2_p / A^2 - 2 C_pt / (A B) + M2_t / B^2) / N + e^2
+//   a0 = sum p (p / A - t / B) = M2_p / A - C_pt / B + N mu_p e
+//   b0 = sum t (p / A - t / B) = C_pt / A - M2_t / B + N mu_t e
+//
+// stats = (mu_p, s_p, mu_t, s_t, a0, b0).  m's first form cancels where
+// p and t nearly agree (m much below 1): its absolute error is then a
+// few f32 ulps of 1, from the f32 moments.
+//
+// Backward: one elementwise launch.  a = (2 / N) uscale a0 (b likewise)
+// comes from the statistics, so the launch reads p, t and, where given,
+// gin once and writes the output once.
 //
 // Interface: plain C, bound with ctypes; each entry returns
 // cudaGetLastError().
@@ -45,25 +65,46 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 8192;   // elements per CTA, a multiple of 8 * kThreads
+constexpr int kPerThread = 32;                  // elements of p (and of t)
+constexpr int kChunk = kThreads * kPerThread;   // 8192 elements per CTA
 constexpr float kEps = 1e-8f;
 
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// Eight consecutive elements as loaded (16-byte vectors), kept packed in
+// registers until used: a thread's loads are all issued before any is
+// used, and bf16 data costs half the registers.
+template <typename T> struct Pack8;
+template <> struct Pack8<float> { float4 a, b; };
+template <> struct Pack8<__nv_bfloat16> { uint4 u; };
+
+__device__ __forceinline__ Pack8<float> load8(const float* p) {
+  return {reinterpret_cast<const float4*>(p)[0],
+          reinterpret_cast<const float4*>(p)[1]};
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ Pack8<__nv_bfloat16> load8(
+    const __nv_bfloat16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+
+__device__ __forceinline__ void unpack(const Pack8<float>& x, float v[8]) {
+  v[0] = x.a.x; v[1] = x.a.y; v[2] = x.a.z; v[3] = x.a.w;
+  v[4] = x.b.x; v[5] = x.b.y; v[6] = x.b.z; v[7] = x.b.w;
+}
+
+__device__ __forceinline__ void unpack(const Pack8<__nv_bfloat16>& x,
+                                       float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x.u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ float first(const float* p) { return p[0]; }
+__device__ __forceinline__ float first(const __nv_bfloat16* p) {
+  return __bfloat162float(p[0]);
 }
 
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
@@ -79,291 +120,270 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// Sum over the block in a fixed order (warp shuffles, then warp 0 over
-// the warps' sums); every thread gets the result.
-__device__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
-  __shared__ float total;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) total = s;
-  }
-  __syncthreads();
-  const float r = total;
-  __syncthreads();  // the shared slots may be reused by the next call
+// Centred moments of a set of (p, t) pairs.
+struct Moments {
+  float n, mu_p, mu_t, m2_p, m2_t, c_pt;
+};
+
+// Chan's merge of two disjoint sets, x before y.
+__device__ __forceinline__ Moments merge(const Moments& x, const Moments& y) {
+  if (y.n == 0.f) return x;
+  if (x.n == 0.f) return y;
+  Moments r;
+  r.n = x.n + y.n;
+  const float f = y.n / r.n, w = x.n * f;   // w = x.n y.n / n
+  const float dp = y.mu_p - x.mu_p, dt = y.mu_t - x.mu_t;
+  r.mu_p = x.mu_p + dp * f;
+  r.mu_t = x.mu_t + dt * f;
+  r.m2_p = x.m2_p + y.m2_p + dp * dp * w;
+  r.m2_t = x.m2_t + y.m2_t + dt * dt * w;
+  r.c_pt = x.c_pt + y.c_pt + dp * dt * w;
   return r;
 }
 
-// Sum of a sample's per-chunk partials part[(b * nch + k) * stride + off]
-// over k, in a fixed order: the same value in every CTA that asks.
-__device__ float sample_sum(const float* part, int b, int nch, int stride,
-                            int off) {
-  float s = 0.f;
-  for (int k = threadIdx.x; k < nch; k += kThreads)
-    s += part[((size_t)b * nch + k) * stride + off];
-  return block_sum(s);
+__device__ __forceinline__ Moments shfl_xor(const Moments& m, int off) {
+  Moments r;
+  r.n = __shfl_xor_sync(0xffffffffu, m.n, off);
+  r.mu_p = __shfl_xor_sync(0xffffffffu, m.mu_p, off);
+  r.mu_t = __shfl_xor_sync(0xffffffffu, m.mu_t, off);
+  r.m2_p = __shfl_xor_sync(0xffffffffu, m.m2_p, off);
+  r.m2_t = __shfl_xor_sync(0xffffffffu, m.m2_t, off);
+  r.c_pt = __shfl_xor_sync(0xffffffffu, m.c_pt, off);
+  return r;
 }
 
-struct Stats {
-  float mu_p, s_p, mu_t, s_t;
-};
-
-__device__ Stats stats_from_parts(const float* part1, const float* part2,
-                                  int b, int nch, float n) {
-  Stats st;
-  st.mu_p = sample_sum(part1, b, nch, 2, 0) / n;
-  st.mu_t = sample_sum(part1, b, nch, 2, 1) / n;
-  st.s_p = sqrtf(sample_sum(part2, b, nch, 2, 0) / n);
-  st.s_t = sqrtf(sample_sum(part2, b, nch, 2, 1) / n);
-  return st;
-}
-
-// Pass 1: per-chunk sums of p and of t.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nm_sum_kernel(const T* __restrict__ p, const T* __restrict__ t, long long N,
-              int nch, float* part1) {
-  const int b = blockIdx.y, k = blockIdx.x;
-  const long long lo = (long long)k * kChunk;
-  const long long hi = min(lo + kChunk, N);
-  const T* P = p + (size_t)b * N;
-  const T* Q = t + (size_t)b * N;
-  float sp = 0.f, st = 0.f;
-  for (long long i = lo + 8 * threadIdx.x; i < hi; i += 8 * kThreads) {
-    float a[8], c[8];
-    load8(P + i, a);
-    load8(Q + i, c);
+// The block's merge in a fixed tree: a butterfly over each warp's lanes
+// (lower lane first, so both partners compute the same value), then warp
+// 0 ... 7 in order.  Thread 0 gets the result.
+__device__ Moments block_merge(Moments m) {
+  __shared__ Moments warp_m[kThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) { sp += a[j]; st += c[j]; }
+  for (int off = 16; off > 0; off >>= 1) {
+    const Moments o = shfl_xor(m, off);
+    m = (lane & off) ? merge(o, m) : merge(m, o);
   }
-  sp = block_sum(sp);
-  st = block_sum(st);
+  if (lane == 0) warp_m[warp] = m;
+  __syncthreads();
   if (threadIdx.x == 0) {
-    part1[((size_t)b * nch + k) * 2] = sp;
-    part1[((size_t)b * nch + k) * 2 + 1] = st;
+    for (int w = 1; w < kThreads / 32; ++w) m = merge(m, warp_m[w]);
   }
+  return m;
 }
 
-// Pass 2: per-chunk sums of the centred squares.
+// Forward: chunk blockIdx.x of sample blockIdx.y; work holds 6 floats of
+// moments per (sample, chunk); tickets [B] are 0 on entry and on exit.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-nm_sq_kernel(const T* __restrict__ p, const T* __restrict__ t, long long N,
-             int nch, const float* part1, float* part2) {
+nm_forward_kernel(const T* __restrict__ p, const T* __restrict__ t,
+                  long long N, int nch, float* __restrict__ work,
+                  unsigned* __restrict__ tickets, float* __restrict__ m_out,
+                  float* __restrict__ stats) {
   const int b = blockIdx.y, k = blockIdx.x;
-  const float n = (float)N;
-  const float mu_p = sample_sum(part1, b, nch, 2, 0) / n;
-  const float mu_t = sample_sum(part1, b, nch, 2, 1) / n;
   const long long lo = (long long)k * kChunk;
   const long long hi = min(lo + kChunk, N);
   const T* P = p + (size_t)b * N;
   const T* Q = t + (size_t)b * N;
-  float sp = 0.f, st = 0.f;
-  for (long long i = lo + 8 * threadIdx.x; i < hi; i += 8 * kThreads) {
-    float a[8], c[8];
-    load8(P + i, a);
-    load8(Q + i, c);
+  const float kp = first(P), kt = first(Q);   // the sample's shift
+  // This thread's elements: lo + 8 tid + 8 kThreads j + e, j < 4, e < 8;
+  // the first cnt of them exist.
+  constexpr int kLoads = kPerThread / 8;
+  Pack8<T> rp[kLoads], rt[kLoads];
+  int cnt = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float dp = a[j] - mu_p, dt = c[j] - mu_t;
-      sp += dp * dp;
-      st += dt * dt;
+  for (int j = 0; j < kLoads; ++j) {
+    const long long i = lo + 8 * threadIdx.x + 8 * kThreads * j;
+    if (i < hi) {
+      rp[j] = load8(P + i);
+      rt[j] = load8(Q + i);
+      cnt += 8;
     }
   }
-  sp = block_sum(sp);
-  st = block_sum(st);
-  if (threadIdx.x == 0) {
-    part2[((size_t)b * nch + k) * 2] = sp;
-    part2[((size_t)b * nch + k) * 2 + 1] = st;
-  }
-}
-
-// Pass 3: per-chunk sums of the squared normalised difference.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nm_d2_kernel(const T* __restrict__ p, const T* __restrict__ t, long long N,
-             int nch, const float* part1, const float* part2, float* part3) {
-  const int b = blockIdx.y, k = blockIdx.x;
-  const Stats st = stats_from_parts(part1, part2, b, nch, (float)N);
-  const float ep = st.s_p + kEps, et = st.s_t + kEps;
-  const long long lo = (long long)k * kChunk;
-  const long long hi = min(lo + kChunk, N);
-  const T* P = p + (size_t)b * N;
-  const T* Q = t + (size_t)b * N;
-  float s = 0.f;
-  for (long long i = lo + 8 * threadIdx.x; i < hi; i += 8 * kThreads) {
-    float a[8], c[8];
-    load8(P + i, a);
-    load8(Q + i, c);
+  Moments mo{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (cnt > 0) {
+    float sp = 0.f, st = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float d = a[j] / ep - c[j] / et;
-      s += d * d;
+    for (int j = 0; j < kLoads; ++j) {
+      if (8 * j < cnt) {
+        float a[8], c[8];
+        unpack(rp[j], a);
+        unpack(rt[j], c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) { sp += a[e] - kp; st += c[e] - kt; }
+      }
+    }
+    mo.n = (float)cnt;
+    mo.mu_p = sp / mo.n;
+    mo.mu_t = st / mo.n;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (8 * j < cnt) {
+        float a[8], c[8];
+        unpack(rp[j], a);
+        unpack(rt[j], c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float dp = (a[e] - kp) - mo.mu_p, dt = (c[e] - kt) - mo.mu_t;
+          mo.m2_p += dp * dp;
+          mo.m2_t += dt * dt;
+          mo.c_pt += dp * dt;
+        }
+      }
     }
   }
-  s = block_sum(s);
-  if (threadIdx.x == 0) part3[(size_t)b * nch + k] = s;
-}
-
-// Pass 4: one block per sample writes stats [B, 4] and m [B].
-__global__ void __launch_bounds__(kThreads)
-nm_finalize_kernel(long long N, int nch, const float* part1,
-                   const float* part2, const float* part3, float* m,
-                   float* stats) {
-  const int b = blockIdx.x;
-  const float n = (float)N;
-  const Stats st = stats_from_parts(part1, part2, b, nch, n);
-  const float d2 = sample_sum(part3, b, nch, 1, 0);
+  mo = block_merge(mo);
+  __shared__ bool last;
   if (threadIdx.x == 0) {
-    m[b] = d2 / n;
-    stats[4 * b] = st.mu_p;
-    stats[4 * b + 1] = st.s_p;
-    stats[4 * b + 2] = st.mu_t;
-    stats[4 * b + 3] = st.s_t;
+    float* w = work + ((size_t)b * nch + k) * 6;
+    w[0] = mo.n; w[1] = mo.mu_p; w[2] = mo.mu_t;
+    w[3] = mo.m2_p; w[4] = mo.m2_t; w[5] = mo.c_pt;
+    __threadfence();
+    last = atomicAdd(&tickets[b], 1u) == (unsigned)(nch - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The last CTA of the sample: chunks tid, tid + kThreads, ... in order,
+  // then the fixed block tree.
+  Moments s{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int q = threadIdx.x; q < nch; q += kThreads) {
+    const float* w = work + ((size_t)b * nch + q) * 6;
+    const Moments o{__ldcg(w), __ldcg(w + 1), __ldcg(w + 2), __ldcg(w + 3),
+                    __ldcg(w + 4), __ldcg(w + 5)};
+    s = merge(s, o);
+  }
+  s = block_merge(s);
+  if (threadIdx.x == 0) {
+    const double n = (double)N;
+    const double mu_p = (double)kp + s.mu_p, mu_t = (double)kt + s.mu_t;
+    const double m2_p = s.m2_p, m2_t = s.m2_t, c_pt = s.c_pt;
+    // s_p, s_t rounded to f32 first: the eps the backward and the plain
+    // version add is to the f32 deviation.
+    const float s_p = (float)sqrt(m2_p / n), s_t = (float)sqrt(m2_t / n);
+    const double A = (double)(s_p + kEps), Bt = (double)(s_t + kEps);
+    const double e = mu_p / A - mu_t / Bt;
+    m_out[b] = (float)((m2_p / (A * A) - 2.0 * c_pt / (A * Bt) +
+                        m2_t / (Bt * Bt)) / n + e * e);
+    float* st = stats + 6 * b;
+    st[0] = (float)mu_p; st[1] = s_p; st[2] = (float)mu_t; st[3] = s_t;
+    st[4] = (float)(m2_p / A - c_pt / Bt + n * mu_p * e);
+    st[5] = (float)(c_pt / A - m2_t / Bt + n * mu_t * e);
+    tickets[b] = 0u;
   }
 }
 
-// Backward pass 1: per-chunk sums of u * ref, ref = p (dp) or t (dt).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nm_dot_kernel(const T* __restrict__ p, const T* __restrict__ t, long long N,
-              int nch, const float* stats, const float* uscale,
-              int wrt_target, float* part) {
-  const int b = blockIdx.y, k = blockIdx.x;
-  const float ep = stats[4 * b + 1] + kEps, et = stats[4 * b + 3] + kEps;
-  const float c = (2.f / (float)N) * uscale[b];
-  const long long lo = (long long)k * kChunk;
-  const long long hi = min(lo + kChunk, N);
-  const T* P = p + (size_t)b * N;
-  const T* Q = t + (size_t)b * N;
-  float s = 0.f;
-  for (long long i = lo + 8 * threadIdx.x; i < hi; i += 8 * kThreads) {
-    float a[8], q[8];
-    load8(P + i, a);
-    load8(Q + i, q);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float u = c * (a[j] / ep - q[j] / et);
-      s += u * (wrt_target ? q[j] : a[j]);
-    }
-  }
-  s = block_sum(s);
-  if (threadIdx.x == 0) part[(size_t)b * nch + k] = s;
-}
-
-// Backward pass 2: the elementwise gradient (+ gin, ReLU mask by p > 0).
+// Backward: the elementwise gradient dp (or dt), + gin, ReLU mask by
+// p > 0, with a (or b) from the statistics.
 template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
-nm_grad_kernel(const T* __restrict__ p, const T* __restrict__ t, long long N,
-               int nch, const float* stats, const float* uscale,
-               int wrt_target, const float* part, const float* gin, int mask,
-               O* out) {
+nm_backward_kernel(const T* __restrict__ p, const T* __restrict__ t,
+                   long long N, const float* __restrict__ stats,
+                   const float* __restrict__ uscale, int wrt_target,
+                   const float* __restrict__ gin, int mask,
+                   O* __restrict__ out) {
   const int b = blockIdx.y, k = blockIdx.x;
-  const float dot = sample_sum(part, b, nch, 1, 0);
   const float n = (float)N;
-  const float mu_p = stats[4 * b], s_p = stats[4 * b + 1];
-  const float mu_t = stats[4 * b + 2], s_t = stats[4 * b + 3];
-  const float ep = s_p + kEps, et = s_t + kEps;
+  const float* sb = stats + 6 * b;
+  const float mu_p = sb[0], s_p = sb[1], mu_t = sb[2], s_t = sb[3];
+  // reciprocals once: the per-element work is multiplies
+  const float rp = 1.f / (s_p + kEps), rt = 1.f / (s_t + kEps);
   const float c = (2.f / n) * uscale[b];
-  const float den = wrt_target ? et * et * n * s_t : ep * ep * n * s_p;
+  const float dot = c * (wrt_target ? sb[5] : sb[4]);
+  // the centred term's factor: a / ((s_p + eps)^2 N s_p), b likewise
+  const float f = wrt_target ? dot * rt * rt / (n * s_t)
+                             : dot * rp * rp / (n * s_p);
   const long long lo = (long long)k * kChunk;
   const long long hi = min(lo + kChunk, N);
   const T* P = p + (size_t)b * N;
   const T* Q = t + (size_t)b * N;
   const float* G = gin ? gin + (size_t)b * N : nullptr;
   O* Out = out + (size_t)b * N;
-  for (long long i = lo + 8 * threadIdx.x; i < hi; i += 8 * kThreads) {
-    float a[8], q[8], g[8], r[8];
-    load8(P + i, a);
-    load8(Q + i, q);
-    if (G) load8(G + i, g);
+  constexpr int kLoads = kPerThread / 8;
+  Pack8<T> lp[kLoads], lt[kLoads];
+  Pack8<float> lg[kLoads];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float u = c * (a[j] / ep - q[j] / et);
-      float v = wrt_target ? -u / et + dot * (q[j] - mu_t) / den
-                           : u / ep - dot * (a[j] - mu_p) / den;
-      if (G) v = g[j] + v;
-      if (mask && !(a[j] > 0.f)) v = 0.f;
-      r[j] = v;
+  for (int j = 0; j < kLoads; ++j) {
+    const long long i = lo + 8 * threadIdx.x + 8 * kThreads * j;
+    if (i < hi) {
+      lp[j] = load8(P + i);
+      lt[j] = load8(Q + i);
+      if (G) lg[j] = load8(G + i);
     }
-    store8(Out + i, r);
+  }
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const long long i = lo + 8 * threadIdx.x + 8 * kThreads * j;
+    if (i < hi) {
+      float a[8], q[8], g[8], r[8];
+      unpack(lp[j], a);
+      unpack(lt[j], q);
+      if (G) unpack(lg[j], g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float u = c * (a[e] * rp - q[e] * rt);
+        float v = wrt_target ? f * (q[e] - mu_t) - u * rt
+                             : u * rp - f * (a[e] - mu_p);
+        if (G) v = g[e] + v;
+        if (mask && !(a[e] > 0.f)) v = 0.f;
+        r[e] = v;
+      }
+      store8(Out + i, r);
+    }
   }
 }
 
 inline int num_chunks(long long N) { return (int)((N + kChunk - 1) / kChunk); }
 
-template <typename T>
-int forward(const void* p, const void* t, int B, long long N, float* m,
-            float* stats, float* work, cudaStream_t s) {
-  const int nch = num_chunks(N);
-  float* part1 = work;
-  float* part2 = part1 + (size_t)2 * B * nch;
-  float* part3 = part2 + (size_t)2 * B * nch;
-  const T* P = static_cast<const T*>(p);
-  const T* Q = static_cast<const T*>(t);
-  const dim3 grid(nch, B);
-  nm_sum_kernel<T><<<grid, kThreads, 0, s>>>(P, Q, N, nch, part1);
-  nm_sq_kernel<T><<<grid, kThreads, 0, s>>>(P, Q, N, nch, part1, part2);
-  nm_d2_kernel<T><<<grid, kThreads, 0, s>>>(P, Q, N, nch, part1, part2, part3);
-  nm_finalize_kernel<<<B, kThreads, 0, s>>>(N, nch, part1, part2, part3, m,
-                                            stats);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int backward(const void* p, const void* t, int B, long long N,
-             const float* stats, const float* uscale, int wrt_target,
-             const float* gin, int mask, void* out, int out_f32, float* work,
-             cudaStream_t s) {
-  const int nch = num_chunks(N);
-  const T* P = static_cast<const T*>(p);
-  const T* Q = static_cast<const T*>(t);
-  const dim3 grid(nch, B);
-  nm_dot_kernel<T><<<grid, kThreads, 0, s>>>(P, Q, N, nch, stats, uscale,
-                                             wrt_target, work);
-  if (out_f32)
-    nm_grad_kernel<T, float><<<grid, kThreads, 0, s>>>(
-        P, Q, N, nch, stats, uscale, wrt_target, work, gin, mask,
-        static_cast<float*>(out));
-  else
-    nm_grad_kernel<T, T><<<grid, kThreads, 0, s>>>(
-        P, Q, N, nch, stats, uscale, wrt_target, work, gin, mask,
-        static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Chunks per sample: the workspace holds 5 * B * chunks floats for the
-// forward and B * chunks for the backward.
+// Chunks per sample: the forward's workspace holds 6 * B * chunks floats.
 extern "C" int nm_chunks(long long N) { return num_chunks(N); }
 
 // dtype 0: float32, 1: bfloat16.  N % 8 == 0 and 16-byte aligned rows.
+// tickets: B zeroed unsigned ints, left zeroed.
 extern "C" int nm_forward(const void* p, const void* t, int dtype, int B,
                           long long N, float* m, float* stats, float* work,
-                          void* stream) {
+                          unsigned* tickets, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dtype == 1 ? forward<__nv_bfloat16>(p, t, B, N, m, stats, work, s)
-                    : forward<float>(p, t, B, N, m, stats, work, s);
+  const int nch = num_chunks(N);
+  const dim3 grid(nch, B);
+  if (dtype == 1)
+    nm_forward_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(p),
+        static_cast<const __nv_bfloat16*>(t), N, nch, work, tickets, m, stats);
+  else
+    nm_forward_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(t), N, nch,
+        work, tickets, m, stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// stats [B, 6] from nm_forward; out in the input dtype or f32 (out_f32).
 extern "C" int nm_backward(const void* p, const void* t, int dtype, int B,
                            long long N, const float* stats,
                            const float* uscale, int wrt_target,
                            const float* gin, int mask, void* out, int out_f32,
-                           float* work, void* stream) {
+                           void* stream) {
   if (B <= 0 || N <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? backward<__nv_bfloat16>(p, t, B, N, stats, uscale, wrt_target,
-                                       gin, mask, out, out_f32, work, s)
-             : backward<float>(p, t, B, N, stats, uscale, wrt_target, gin,
-                               mask, out, out_f32, work, s);
+  const dim3 grid(num_chunks(N), B);
+  if (dtype == 1) {
+    const __nv_bfloat16* P = static_cast<const __nv_bfloat16*>(p);
+    const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(t);
+    if (out_f32)
+      nm_backward_kernel<__nv_bfloat16, float><<<grid, kThreads, 0, s>>>(
+          P, Q, N, stats, uscale, wrt_target, gin, mask,
+          static_cast<float*>(out));
+    else
+      nm_backward_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, 0,
+                                                         s>>>(
+          P, Q, N, stats, uscale, wrt_target, gin, mask,
+          static_cast<__nv_bfloat16*>(out));
+  } else {
+    nm_backward_kernel<float, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(t), N, stats,
+        uscale, wrt_target, gin, mask, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }

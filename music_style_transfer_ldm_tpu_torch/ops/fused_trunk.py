@@ -10,14 +10,22 @@ the rest from f1, conv1's output for both branches stacked on the batch
 dimension ([2B, H, W, C1] NHWC, pred rows then target rows):
 
 * conv2 ... conv4_2 with the three 2x2 max-pools
-  (``csrc/fused_trunk.cu``), and the six per-layer metrics through kernel
-  D's forward (``ops/normalized_mse.py``) on each map's pred and target
-  halves: m [B, 6];
+  (``csrc/fused_trunk.cu``; in bf16 tensor-core implicit GEMMs fed by
+  TMA, in f32 the CUDA-core parity instrument), and the six per-layer
+  metrics through kernel D's forward (``ops/normalized_mse.py``) on each
+  map's pred and target halves: m [B, 6];
 * with grad, for each layer from 6 down to 1: kernel D's direct metric
   gradient (unit upstream x 1/6) added to the incoming gradient under the
-  ReLU mask of the stored pred map, the conv input-gradient kernel and
-  the first-match unpool kernel; the result g1 [B, H, W, C1] is the
-  gradient of mean_l m_l at conv1's (masked) output.
+  ReLU mask of the stored pred map, written in the dtype, the conv
+  input-gradient kernel and the first-match unpool kernel; the result g1
+  [B, H, W, C1] is the gradient of mean_l m_l at conv1's (masked) output.
+
+The weights are packed per call by ``forward_weights`` and
+``dgrad_weights`` (plain PyTorch).  The bf16 kernels take channels in
+multiples of 64 and whole tiles of 8 rows x 16 columns at every conv
+(``tc_fits``); ``fused_supported`` says so, ``losses/vggish.py`` routes
+any other bf16 geometry to the per-layer route, and ``fused_trunk``
+raises on it.
 
 On a CUDA tensor ``fused_trunk`` launches the kernels; on a CPU tensor it
 runs ``fused_trunk_reference`` (the trunk in plain PyTorch, autograd for
@@ -64,11 +72,32 @@ def _check_geometry(H: int, W: int) -> None:
                          f"{(H, W)}")
 
 
+# The bf16 conv kernel's tile (csrc/fused_trunk.cu, namespace tc): 8 rows
+# x 16 columns of pixels, channels in steps of 64.
+TC_TILE_H, TC_TILE_W, TC_CHANNELS = 8, 16, 64
+
+
+def tc_fits(module, H: int, W: int) -> bool:
+    """True when every conv from conv2 on fits the bf16 tensor-core
+    kernel at an H x W input: its map's H a multiple of 8 and W of 16,
+    its input and output channels multiples of 64."""
+    h, w = H, W
+    for i, (conv, pool) in enumerate(module.layers()):
+        if i > 0 and (h % TC_TILE_H or w % TC_TILE_W
+                      or conv.in_channels % TC_CHANNELS
+                      or conv.out_channels % TC_CHANNELS):
+            return False
+        if pool:
+            h, w = h // 2, w // 2
+    return True
+
+
 def fused_supported(module, pred: torch.Tensor) -> bool:
     """True when the trunk kernels take this (module, input) pair: one
     input channel, H and W divisible by 8 (three pools), 3x3 stride-1
     pad-1 convs chained channel to channel, widths divisible by 4 (vector
-    loads), and a float32 or bfloat16 compute dtype."""
+    loads), and a float32 or bfloat16 compute dtype; in bfloat16 also
+    ``tc_fits`` (VGGish's widths at 128 x 128 fit)."""
     try:
         layers = module.layers()
     except AttributeError:
@@ -84,7 +113,31 @@ def fused_supported(module, pred: torch.Tensor) -> bool:
                 or conv.out_channels % 4):
             return False
         cin = conv.out_channels
+    if module.dtype == torch.bfloat16:
+        return tc_fits(module, pred.shape[1], pred.shape[2])
     return module.dtype in _DTYPES
+
+
+def forward_weights(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """The forward conv kernel's weights in ``dtype``: bf16 [9, Cout, Cin]
+    (K-major for the tensor cores), f32 [9, Cin, Cout] (the CUDA-core
+    kernel's layout); tap = 3 ky + kx."""
+    w = conv.weight.detach()
+    if dtype == torch.bfloat16:
+        w = w.permute(2, 3, 0, 1).reshape(9, conv.out_channels,
+                                          conv.in_channels)
+    else:
+        w = w.permute(2, 3, 1, 0).reshape(9, conv.in_channels,
+                                          conv.out_channels)
+    return w.to(dtype).contiguous()
+
+
+def dgrad_weights(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """The input-gradient kernel's weights in ``dtype``: [9, Cin, Cout],
+    contracted over Cout with tap = 3 ky + kx taken at (-dy, -dx)."""
+    w = conv.weight.detach().permute(2, 3, 1, 0)
+    return w.reshape(9, conv.in_channels, conv.out_channels).to(
+        dtype).contiguous()
 
 
 def conv1_both(module, pred: torch.Tensor,
@@ -154,6 +207,41 @@ def _ok(err: int, what: str) -> None:
                            f"{err}")
 
 
+def trunk_conv(x: torch.Tensor, conv: nn.Conv2d,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One conv + bias + ReLU of the trunk on the card: x [N, H, W, Cin]
+    NHWC CUDA (f32 or bf16) -> y [N, H, W, Cout] in x's dtype; ``w`` is
+    ``forward_weights(conv, x.dtype)`` (packed here when not given)."""
+    n, h, wd, cin = x.shape
+    if w is None:
+        w = forward_weights(conv, x.dtype)
+    bias = conv.bias.detach().float().contiguous()
+    y = torch.empty((n, h, wd, conv.out_channels), dtype=x.dtype,
+                    device=x.device)
+    _ok(_library().trunk_conv3x3(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        _DTYPES[x.dtype], n, h, wd, cin, conv.out_channels,
+        torch.cuda.current_stream(x.device).cuda_stream), "conv")
+    return y
+
+
+def trunk_conv_dgrad(g: torch.Tensor, conv: nn.Conv2d,
+                     w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The conv's input gradient on the card: g [N, H, W, Cout] NHWC CUDA
+    in the dtype (f32 or bf16) -> dx [N, H, W, Cin] f32; ``w`` is
+    ``dgrad_weights(conv, g.dtype)`` (packed here when not given)."""
+    n, h, wd, cout = g.shape
+    if w is None:
+        w = dgrad_weights(conv, g.dtype)
+    dx = torch.empty((n, h, wd, conv.in_channels), dtype=torch.float32,
+                     device=g.device)
+    _ok(_library().trunk_conv3x3_dgrad(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], n, h,
+        wd, conv.in_channels, cout,
+        torch.cuda.current_stream(g.device).cuda_stream), "conv input-grad")
+    return dx
+
+
 def fused_trunk(module, f1: torch.Tensor, with_grad: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """f1 [2B, H, W, C1] NHWC in the module's dtype (pred rows, then
@@ -170,31 +258,25 @@ def fused_trunk(module, f1: torch.Tensor, with_grad: bool = False
     if dt != module.dtype or dt not in _DTYPES or C1 % 4 or NB % 2:
         raise ValueError(f"fused_trunk: f1 {dt} {tuple(f1.shape)} does not "
                          f"fit a {module.dtype} trunk")
+    if dt == torch.bfloat16 and not tc_fits(module, H, W):
+        raise ValueError(f"fused_trunk: the bf16 conv kernel needs channels "
+                         f"in multiples of {TC_CHANNELS} and maps of whole "
+                         f"{TC_TILE_H} x {TC_TILE_W} tiles; got a "
+                         f"{(H, W)} input")
     lib = _library()
     code, B = _DTYPES[dt], NB // 2
     stream = torch.cuda.current_stream(f1.device).cuda_stream
     layers = module.layers()
-    feats, stats, w9s, ms = [], [], [], []
+    feats, stats, ms = [], [], []
     x = f1.contiguous()
     for i, (conv, pool) in enumerate(layers):
-        w9 = None
         if i > 0:
-            n, h, w, cin = x.shape
-            cout = conv.out_channels
-            w9 = (conv.weight.detach().permute(2, 3, 1, 0)
-                  .reshape(9, cin, cout).to(dt).contiguous())
-            bias = conv.bias.detach().float().contiguous()
-            y = torch.empty((n, h, w, cout), dtype=dt, device=x.device)
-            _ok(lib.trunk_conv3x3(x.data_ptr(), w9.data_ptr(),
-                                  bias.data_ptr(), y.data_ptr(), code, n, h,
-                                  w, cin, cout, stream), "conv")
-            x = y
+            x = trunk_conv(x, conv)
         m, st = normalized_mse_forward(x[:B], x[B:])
         ms.append(m)
         if with_grad:
             feats.append(x)
             stats.append(st)
-            w9s.append(w9)
         if pool and i + 1 < len(layers):
             n, h, w, c = x.shape
             y = torch.empty((n, h // 2, w // 2, c), dtype=dt, device=x.device)
@@ -208,19 +290,14 @@ def fused_trunk(module, f1: torch.Tensor, with_grad: bool = False
                             device=f1.device)
         for i in range(len(layers) - 1, -1, -1):
             f = feats[i]
+            # in the dtype: the one rounding the conv input-gradient's
+            # operand takes anyway
             g = normalized_mse_backward(
                 f[:B], f[B:], stats[i], uscale, False, gin=g, mask=True,
-                out_dtype=torch.float32 if i else dt)
+                out_dtype=dt)
             if i == 0:
                 break
-            _, h, w, cout = g.shape
-            cin = w9s[i].shape[1]
-            dx = torch.empty((B, h, w, cin), dtype=torch.float32,
-                             device=f1.device)
-            _ok(lib.trunk_conv3x3_dgrad(g.data_ptr(), w9s[i].data_ptr(),
-                                        dx.data_ptr(), code, B, h, w, cin,
-                                        cout, stream), "conv input-grad")
-            g = dx
+            g = trunk_conv_dgrad(g, layers[i][0])
             if layers[i - 1][1]:
                 prev = feats[i - 1][:B]
                 up = torch.empty(prev.shape, dtype=torch.float32,

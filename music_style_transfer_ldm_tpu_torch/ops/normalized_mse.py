@@ -4,9 +4,12 @@ Replaces ``music_style_transfer_ldm_tpu/ops/pallas/normalized_mse.py``
 ``normalized_mse_pallas``.  Per sample of feature maps p, t (any layout;
 statistics over all of a sample's elements, in f32, eps = 1e-8):
 m = mean((p / (s_p + eps) - t / (s_t + eps))^2), and the loss is the
-weights-renormalised mean of m.  The backward is the closed form of
+weights-renormalised mean of m.  The forward also returns the statistics
+[B, 6] = (mu_p, s_p, mu_t, s_t, a0, b0), where a0 = sum p (p / (s_p +
+eps) - t / (s_t + eps)) and b0 = sum t (...) are the backward's dot
+products without the upstream scale.  The backward is the closed form of
 ``losses/vggish.py``'s ``normalized_mse``, dp and dt as two launches of
-one kernel, each only when autograd asks for it.
+one elementwise kernel, each only when autograd asks for it.
 
 ``normalized_mse_forward`` and ``normalized_mse_backward`` launch
 ``csrc/normalized_mse.cu`` (built with nvcc at first use, bound with
@@ -32,6 +35,11 @@ EPS = 1e-8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The plain version's statistics dtype (float64 gives tests an oracle).
 STAT_DTYPE = torch.float32
+# The forward kernel's reduction (csrc/normalized_mse.cu): a chunk of
+# CHUNK elements per CTA, THREADS threads of PER_THREAD elements each.
+THREADS, PER_THREAD = 256, 32
+CHUNK = THREADS * PER_THREAD
+N_STATS = 6
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -44,8 +52,9 @@ def _stat(x: torch.Tensor) -> torch.Tensor:
 
 def normalized_mse_forward_reference(p: torch.Tensor, t: torch.Tensor
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: p, t [B, ...] -> (m [B], stats [B, 4] = mu_p, s_p,
-    mu_t, s_t), all f32, two-pass statistics."""
+    """Plain version: p, t [B, ...] -> (m [B], stats [B, 6] = mu_p, s_p,
+    mu_t, s_t, a0 = sum p d, b0 = sum t d with d = p / (s_p + eps) - t /
+    (s_t + eps)), all f32, two-pass statistics and direct sums."""
     p32, t32 = _stat(p), _stat(t)
     mu_p = p32.mean(1)
     s_p = ((p32 - mu_p[:, None]) ** 2).mean(1).sqrt()
@@ -53,7 +62,8 @@ def normalized_mse_forward_reference(p: torch.Tensor, t: torch.Tensor
     s_t = ((t32 - mu_t[:, None]) ** 2).mean(1).sqrt()
     d = p32 / (s_p + EPS)[:, None] - t32 / (s_t + EPS)[:, None]
     return ((d * d).mean(1).float(),
-            torch.stack([mu_p, s_p, mu_t, s_t], 1).float())
+            torch.stack([mu_p, s_p, mu_t, s_t, (p32 * d).sum(1),
+                         (t32 * d).sum(1)], 1).float())
 
 
 def normalized_mse_backward_reference(
@@ -62,9 +72,11 @@ def normalized_mse_backward_reference(
         gin: Optional[torch.Tensor] = None, mask: bool = False,
         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version of the closed-form gradient with per-sample upstream
-    ``uscale`` [B]: dp (or dt with wrt_target), plus ``gin`` (f32, p's
-    shape) when given, zeroed where p <= 0 when ``mask``; in
-    ``out_dtype`` (default: the differentiated input's)."""
+    ``uscale`` [B] and the forward's ``stats`` [B, 6] (of which it reads
+    the first four; a and b are summed directly): dp (or dt with
+    wrt_target), plus ``gin`` (f32, p's shape) when given, zeroed where p
+    <= 0 when ``mask``; in ``out_dtype`` (default: the differentiated
+    input's)."""
     p32, t32 = _stat(p), _stat(t)
     n = float(p32.shape[1])
     mu_p, s_p, mu_t, s_t = (stats[:, i:i + 1].to(p32.dtype) for i in range(4))
@@ -98,16 +110,29 @@ def _library():
     lib.nm_chunks.restype = ctypes.c_int
     lib.nm_forward.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-        + [ctypes.c_void_p] * 4)
+        + [ctypes.c_void_p] * 5)
     lib.nm_forward.restype = ctypes.c_int
     lib.nm_backward.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
         + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p])
+                                   ctypes.c_int, ctypes.c_void_p])
     lib.nm_backward.restype = ctypes.c_int
     return lib
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, batch: int) -> torch.Tensor:
+    """The forward's per-sample tickets: zeroed once per device, and left
+    zeroed by every launch (its last CTA of a sample resets its ticket),
+    so calls on the device's stream share them."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < batch:
+        buf = torch.zeros(max(batch, 256), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
 
 
 def _operand(x: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
@@ -141,9 +166,9 @@ def _check(p: torch.Tensor, t: torch.Tensor, name: str) -> int:
 
 def normalized_mse_forward(p: torch.Tensor, t: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """p, t [B, ...] (f32 or bf16) -> (m [B], stats [B, 4]) f32.  CUDA
-    tensors launch kernel D's forward; CPU tensors run the plain
-    version."""
+    """p, t [B, ...] (f32 or bf16) -> (m [B], stats [B, 6]) f32.  CUDA
+    tensors launch kernel D's forward (one launch, one read of p and t);
+    CPU tensors run the plain version."""
     n = _check(p, t, "normalized_mse_forward")
     if p.device.type == "cpu":
         return normalized_mse_forward_reference(p, t)
@@ -152,11 +177,12 @@ def normalized_mse_forward(p: torch.Tensor, t: torch.Tensor
     p, t = _operand(p, p.dtype, p.shape), _operand(t, p.dtype, p.shape)
     dev = p.device
     m = torch.empty(B, dtype=torch.float32, device=dev)
-    stats = torch.empty(B, 4, dtype=torch.float32, device=dev)
-    work = torch.empty(5 * B * lib.nm_chunks(n), dtype=torch.float32,
+    stats = torch.empty(B, N_STATS, dtype=torch.float32, device=dev)
+    work = torch.empty(N_STATS * B * lib.nm_chunks(n), dtype=torch.float32,
                        device=dev)
     err = lib.nm_forward(p.data_ptr(), t.data_ptr(), _DTYPES[p.dtype], B, n,
                          m.data_ptr(), stats.data_ptr(), work.data_ptr(),
+                         _tickets(dev, B).data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"normalized-MSE forward kernel launch failed: "
@@ -177,9 +203,14 @@ def normalized_mse_backward(p: torch.Tensor, t: torch.Tensor,
                             ) -> torch.Tensor:
     """dp (or dt with ``wrt_target``) of the layer for per-sample upstream
     ``uscale`` [B], optionally plus ``gin`` and masked by p > 0, in
-    ``out_dtype`` (float32 or the inputs' dtype).  CUDA tensors launch
-    kernel D's backward; CPU tensors run the plain version."""
+    ``out_dtype`` (float32 or the inputs' dtype); ``stats`` is the
+    forward's [B, 6].  CUDA tensors launch kernel D's backward (one
+    elementwise launch); CPU tensors run the plain version."""
     n = _check(p, t, "normalized_mse_backward")
+    if stats.ndim != 2 or stats.shape[1] != N_STATS:
+        raise ValueError(f"normalized_mse_backward: stats must be [B, "
+                         f"{N_STATS}] from normalized_mse_forward, got "
+                         f"{tuple(stats.shape)}")
     if p.device.type == "cpu":
         return normalized_mse_backward_reference(p, t, stats, uscale,
                                                  wrt_target, gin, mask,
@@ -191,17 +222,16 @@ def normalized_mse_backward(p: torch.Tensor, t: torch.Tensor,
     lib = _library()
     B, dev = p.shape[0], p.device
     p, t = _operand(p, p.dtype, p.shape), _operand(t, p.dtype, p.shape)
-    stats = _operand(stats.float(), torch.float32, (B, 4))
+    stats = _operand(stats.float(), torch.float32, (B, N_STATS))
     uscale = _operand(uscale.float().reshape(B), torch.float32, (B,))
     if gin is not None:
         gin = _operand(gin, torch.float32, p.shape)
     out = torch.empty(p.shape, dtype=out_dtype, device=dev)
-    work = torch.empty(B * lib.nm_chunks(n), dtype=torch.float32, device=dev)
     err = lib.nm_backward(
         p.data_ptr(), t.data_ptr(), _DTYPES[p.dtype], B, n, stats.data_ptr(),
         uscale.data_ptr(), int(bool(wrt_target)),
         None if gin is None else gin.data_ptr(), int(bool(mask)),
-        out.data_ptr(), int(out_dtype == torch.float32), work.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.float32),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"normalized-MSE backward kernel launch failed: "

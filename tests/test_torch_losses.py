@@ -127,7 +127,8 @@ def test_normalized_mse_pieces():
     np.testing.assert_allclose(m.numpy(), (d * d).mean(1).numpy(),
                                rtol=1e-5)
     np.testing.assert_allclose(
-        stats.numpy(), torch.stack([p64.mean(1), sp, t64.mean(1), st],
+        stats.numpy(), torch.stack([p64.mean(1), sp, t64.mean(1), st,
+                                    (p64 * d).sum(1), (t64 * d).sum(1)],
                                    1).numpy(), rtol=1e-5, atol=1e-7)
     us = torch.tensor([0.5, 2.0])
     gin = torch.tensor(rng.randn(2, 4, 4, 8), dtype=torch.float32)
