@@ -5,12 +5,15 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA card is required (there is no CPU path);
-  2. build: nvcc compiles the fused-trajectory kernel (A), the mel
-     front-end kernel (C), the normalized-MSE layer (D) and the VGGish
-     trunk (E), all CUDA C++ for sm_90a, in parallel, while Triton
-     compiles the DDIM update kernel (B);
+  2. build: nvcc compiles the fused-trajectory kernel (A), the DDIM
+     update (B), the mel front-end kernel (C), the normalized-MSE layer
+     (D) and the VGGish trunk (E), all CUDA C++ for sm_90a, one nvcc per
+     source, in parallel;
   3. every kernel against its plain PyTorch version at the main paths'
-     shapes, with the tolerances stated below; kernel D's six-column
+     shapes, with the tolerances stated below (B with f32 and bf16 eps,
+     out of place and in place with its pred_x0 output; C on four
+     spectrum sets, then on a filterbank with no zero entry and on one
+     with all-zero rows); kernel D's six-column
      statistics and its run-to-run determinism; kernel E's five bf16
      convs one by one at B=128 (forward and input gradient, integer and
      random operands, against exact f32 tap sums), timed beside their
@@ -35,7 +38,9 @@ Phases, in order; any failure exits non-zero:
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
-     shared memory per block and launch plan; and a profile of one
+     shared memory per block and launch plan; kernels B and C back to
+     back, and also their device time per launch (torch.profiler) and
+     host time per call (1,000 calls, no sync); and a profile of one
      training step.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -144,6 +149,43 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps=1000):
+    """Mean host microseconds per call of fn over reps calls with no
+    sync between them (the issue cost), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, kernel, reps=50):
+    """Mean device microseconds per launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over reps calls of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key and str(getattr(
+                evt, "device_type", "")).endswith("CUDA"):
+            total += getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0))
+            count += evt.count
+    check(count >= reps, f"the profile saw {count} launches of {kernel}")
+    return total / count
 
 
 def conv_taps_f32(x, w9, dgrad):
@@ -282,7 +324,8 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
     from music_style_transfer_ldm_tpu_torch.ops import normalized_mse as nm
     from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
-        ddim_update_reference, fused_ddim_update,
+        build_ddim_update, ddim_step_reference, ddim_update_,
+        ddim_update_reference, fused_ddim_update, step_scalars,
     )
     from music_style_transfer_ldm_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine,
@@ -316,8 +359,8 @@ def main() -> int:
           "cuda.matmul.allow_tf32=False")
     results: dict = {"card": smi, "kind": kind}
 
-    # ---- 2. build (one nvcc per source and Triton, all at once) ---------
-    built: dict = {"A": {}, "C": {}, "D": {}, "E": {}}
+    # ---- 2. build (one nvcc per source, all at once) --------------------
+    built: dict = {"A": {}, "B": {}, "C": {}, "D": {}, "E": {}}
 
     def nvcc_build(key, fn):
         try:
@@ -327,16 +370,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=nvcc_build, args=a) for a in (
-        ("A", fs.build_fused_sampler), ("C", fm.build_fused_mel_image),
-        ("D", nm.build_normalized_mse), ("E", ft.build_fused_trunk))]
+        ("A", fs.build_fused_sampler), ("B", build_ddim_update),
+        ("C", fm.build_fused_mel_image), ("D", nm.build_normalized_mse),
+        ("E", ft.build_fused_trunk))]
     for th in threads:
         th.start()
-    probe = torch.zeros(8, 16, 16, 32, device=dev)
-    fused_ddim_update(probe, probe, 0.5, 0.6, 0.0)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
     for th in threads:
         th.join()
+    build_s = time.perf_counter() - t0
     for key in built:
         if "error" in built[key]:
             fail(f"kernel {key} build: {built[key]['error']}")
@@ -345,9 +386,9 @@ def main() -> int:
                 print(f"ptxas ({key}):", line.strip())
     print("build: nvcc " + ", ".join(
         f"{built[k]['seconds']:.1f} s (kernel {k})" for k in built)
-        + f" in parallel, Triton JIT {triton_s:.1f} s (kernel B)")
+        + f" in parallel, {build_s:.1f} s in all")
     results["build_s"] = {**{f"nvcc_{k.lower()}": built[k]["seconds"]
-                             for k in built}, "triton": triton_s}
+                             for k in built}, "all": build_s}
 
     # ---- 3. kernels against their plain versions -----------------------
     g = torch.Generator(device=dev)
@@ -356,15 +397,29 @@ def main() -> int:
     ab = ldm32.schedule.alpha_bars_np
     x = torch.randn(8, 16, 16, 32, device=dev, generator=g)
     e = torch.randn(8, 16, 16, 32, device=dev, generator=g)
-    err_b = 0.0
-    for t, eta in ((49, 0.0), (49, 0.5), (1, 0.0)):
-        k = fused_ddim_update(x, e, float(ab[t]), float(ab[t - 1]), eta)
-        r = ddim_update_reference(x, e, float(ab[t]), float(ab[t - 1]), eta)
-        torch.cuda.synchronize()
-        err_b = max(err_b, (k - r).abs().max().item())
-    print(f"kernel B vs plain [8,16,16,32] f32: max abs err {err_b:.3g} "
-          f"(tol {TOL_KERNEL_B})")
-    check(err_b <= TOL_KERNEL_B, "kernel B disagrees with its plain version")
+    err_b = {}
+    for eps_type, ee in (("f32", e), ("bf16", e.bfloat16())):
+        for t, eta in ((49, 0.0), (49, 0.5), (1, 0.0)):
+            a_t, a_n = float(ab[t]), float(ab[t - 1])
+            k = fused_ddim_update(x, ee, a_t, a_n, eta)
+            r = ddim_update_reference(x, ee, a_t, a_n, eta)
+            sc = step_scalars(a_t, a_n, eta)
+            xi, x0 = x.clone(), torch.empty_like(x)
+            ddim_update_(xi, ee, sc, x0)
+            _, r0 = ddim_step_reference(x, ee, sc)
+            torch.cuda.synchronize()
+            for route, got, want in (("out of place", k, r),
+                                     ("in place", xi, r),
+                                     ("pred_x0", x0, r0)):
+                key = f"{eps_type} {route}"
+                err_b[key] = max(err_b.get(key, 0.0),
+                                 (got - want).abs().max().item())
+    print(f"kernel B vs plain [8,16,16,32] (eps f32 and bf16; t = 49, 1; "
+          f"eta 0, 0.5): max abs err {err_b} (expected 0; tol "
+          f"{TOL_KERNEL_B})")
+    check(max(err_b.values()) <= TOL_KERNEL_B,
+          "kernel B disagrees with its plain version")
+    err_b = max(err_b.values())
 
     content = torch.rand(8, 128, 128, 1, device=dev, generator=g)
     style = torch.rand(8, 128, 128, 1, device=dev, generator=g)
@@ -464,6 +519,36 @@ def main() -> int:
         check(flips <= TOL_KERNEL_C_FLIPS, "kernel C flips too many values")
         err_c, flips_c = max(err_c, err), max(flips_c, flips)
     check(err_c <= TOL_KERNEL_C, "kernel C disagrees with its plain version")
+    # filterbanks the band table must also get right: no zero entry (full
+    # bands), and all-zero rows (empty bands), from a generator of their
+    # own so the later phases' data stay those of earlier runs
+    g_fb = torch.Generator(device=dev)
+    g_fb.manual_seed(6)
+    dense_fb = fb + 1e-4 * torch.rand(fb.shape, device=dev, generator=g_fb)
+    zero_rows = fb.clone()
+    zero_rows[[0, 5, 90]] = 0.0
+    for fb_kind, fb_x in (("no zero entry", dense_fb),
+                          ("rows 0, 5, 90 all zero", zero_rows)):
+        for (kind_c, B), S in spectra.items():
+            k = fm.fused_mel_unit_image(fb_x, S)
+            r = fm.fused_mel_unit_image_reference(fb_x, S)
+            torch.cuda.synchronize()
+            d = (k - r).abs()
+            err = d.max().item()
+            flips = (d > 0.5 / 255.0).float().mean().item()
+            print(f"kernel C vs plain, filterbank with {fb_kind}, [{B},1025,"
+                  f"130] {kind_c}: max abs err {err:.3g} (tol "
+                  f"{TOL_KERNEL_C:.6g}), one-step flips {flips:.3g} (tol "
+                  f"{TOL_KERNEL_C_FLIPS})")
+            check(err <= TOL_KERNEL_C and flips <= TOL_KERNEL_C_FLIPS,
+                  f"kernel C disagrees on a filterbank with {fb_kind}")
+    del dense_fb, zero_rows
+    grid_c = fm.mel_image_grid(fb, 130)
+    print(f"kernel C grid at T=130: {grid_c['groups']} row groups x "
+          f"{grid_c['tiles']} frame tile(s) = {grid_c['ctas_per_item']} CTAs "
+          f"per item; {grid_c['band_macs']} band-limited multiply-adds per "
+          f"item (dense: {128 * 1025 * 130})")
+    check(grid_c["ctas_per_item"] > 1, "kernel C runs one CTA per item")
 
     # kernel D: the six VGGish layer shapes, f32, B=8, one zero weight
     def excess(got, want, rtol, atol):
@@ -956,14 +1041,40 @@ def main() -> int:
     ab49, ab48 = float(ab[49]), float(ab[48])
     xb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
     eb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
-    kb_ms = cuda_ms(lambda: fused_ddim_update(xb, eb, ab49, ab48, 0.0), 200)
-    pb_ms = cuda_ms(lambda: ddim_update_reference(xb, eb, ab49, ab48, 0.0),
-                    200)
     nb = xb.numel()
-    bound_b_ms = 1e3 * max(3 * 4 * nb / H100_BYTES, 6 * nb / H100_F32_FLOPS)
-    print(f"time {card} kernel B [8,16,16,32] f32: {kb_ms * 1e3:.2f} us/launch"
-          f", plain version {pb_ms * 1e3:.2f} us, bound {bound_b_ms * 1e3:.3f}"
-          " us (bytes)")
+    kb_out_ms = cuda_ms(lambda: fused_ddim_update(xb, eb, ab49, ab48, 0.0),
+                        200)
+    print(f"time {card} kernel B [8,16,16,32] f32, fused_ddim_update (out of "
+          f"place, no caller in the port): {kb_out_ms * 1e3:.2f} us/launch "
+          f"back to back, bound {1e6 * 12 * nb / H100_BYTES:.3f} us (bytes)")
+    # The sampler's entry: in place, eps in the UNet's own type (bf16 on
+    # the main path's engines).  Bound: x read and written and eps read
+    # once; its 6 flops per element take less than the bytes.
+    times["kernel_b_detail"] = {}
+    sc49 = step_scalars(ab49, ab48, 0.0)
+    for eps_type, ee in (("f32", eb), ("bf16", eb.bfloat16())):
+        xw = xb.clone()
+        r = times["kernel_b_detail"][eps_type] = {
+            "back_to_back_us": 1e3 * cuda_ms(
+                lambda: ddim_update_(xw, ee, sc49), 200),
+            "device_us": device_us(lambda: ddim_update_(xw, ee, sc49),
+                                   "ddim_update"),
+            "host_us": host_us(lambda: ddim_update_(xw, ee, sc49)),
+            "plain_us": 1e3 * cuda_ms(
+                lambda: ddim_step_reference(xw, ee, sc49), 200),
+            "bound_us": 1e6 * max(nb * (8 + ee.element_size()) / H100_BYTES,
+                                  6 * nb / H100_F32_FLOPS)}
+        print(f"time {card} kernel B [8,16,16,32] ddim_update_ (in place, "
+              f"the sampler's entry), eps {eps_type}: "
+              f"{r['back_to_back_us']:.2f} us/launch back to back, device "
+              f"{r['device_us']:.3f} us per launch (torch.profiler), host "
+              f"{r['host_us']:.2f} us per call (1,000 calls, no sync); plain "
+              f"version {r['plain_us']:.2f} us, bound {r['bound_us']:.3f} us "
+              f"(bytes)")
+        del xw
+    kb = times["kernel_b_detail"]["bf16"]
+    kb_ms, pb_ms, bound_b_ms = (kb["back_to_back_us"] / 1e3,
+                                kb["plain_us"] / 1e3, kb["bound_us"] / 1e3)
     for B in engine.config.batch_buckets:
         t0 = time.perf_counter()
         engine.transfer_batch(reqs_c[:B], reqs_s[:B], seeds=np.arange(B))
@@ -984,20 +1095,35 @@ def main() -> int:
             lambda: fm.fused_mel_unit_image(fb, S), 50)
         times["plain_c_ms"][B] = cuda_ms(
             lambda: fm.fused_mel_unit_image_reference(fb, S), 50)
+        # bound: the work this filterbank needs (each row's band); the
+        # dense count is printed beside it
+        band = fm.mel_image_band_cost(fb, 130, B)
         cost = fm.mel_image_cost(128, 1025, 130, B)
-        bound = {"operations": cost["flops"] / H100_F32_FLOPS,
-                 "bytes": cost["bytes"] / H100_BYTES}
+        bound = {"operations": band["flops"] / H100_F32_FLOPS,
+                 "bytes": band["bytes"] / H100_BYTES}
         times["bound_c_ms"][B] = 1e3 * max(bound.values())
         bound_c_by = times["bound_c_by"][B] = max(bound, key=bound.get)
+        times.setdefault("dense_bound_c_ms", {})[B] = 1e3 * max(
+            cost["flops"] / H100_F32_FLOPS, cost["bytes"] / H100_BYTES)
+        times.setdefault("kernel_c_device_us", {})[B] = device_us(
+            lambda: fm.fused_mel_unit_image(fb, S), "mel_unit_image")
+        times.setdefault("kernel_c_host_us", {})[B] = host_us(
+            lambda: fm.fused_mel_unit_image(fb, S))
         chunks = 0.3 * torch.randn(B, 66150, device=dev, generator=g)
         times["front_end_ms_per_chunk"][B] = cuda_ms(
             lambda: ap.waveform_batch_to_unit_images(chunks), 50) / B
         print(f"time {card} kernel C [{B},1025,130] f32: "
-              f"{times['kernel_c_ms'][B] * 1e3:.1f} us/launch, plain version "
+              f"{times['kernel_c_ms'][B] * 1e3:.1f} us/launch back to back, "
+              f"device {times['kernel_c_device_us'][B]:.2f} us per launch "
+              f"(torch.profiler), host {times['kernel_c_host_us'][B]:.2f} us "
+              f"per call (1,000 calls, no sync); plain version "
               f"{times['plain_c_ms'][B] * 1e3:.1f} us, bound "
-              f"{times['bound_c_ms'][B] * 1e3:.2f} us ({bound_c_by}: "
+              f"{times['bound_c_ms'][B] * 1e3:.3f} us ({bound_c_by}; "
+              f"band-limited {band['flops'] / 1e6:.3f} MFLOP, "
+              f"{band['bytes'] / 1e6:.3f} MB; dense "
               f"{cost['flops'] / 1e6:.1f} MFLOP, {cost['bytes'] / 1e6:.2f} "
-              f"MB); front end (STFT + kernel C) "
+              f"MB, {times['dense_bound_c_ms'][B] * 1e3:.3f} us); front end "
+              f"(STFT + kernel C) "
               f"{times['front_end_ms_per_chunk'][B] * 1e3:.1f} us per chunk")
     times["cli_transfer_s"] = cli_transfer_s
     times["http_s"] = http_s
@@ -1136,7 +1262,8 @@ def main() -> int:
     mem = torch.cuda.max_memory_allocated() / 2**20
     print(f"memory {card} max_memory_allocated {mem:.1f} MiB")
     times.update({"kernel_b_ms": kb_ms, "plain_b_ms": pb_ms,
-                  "bound_b_ms": bound_b_ms, "max_memory_mib": mem})
+                  "bound_b_ms": bound_b_ms, "kernel_b_out_of_place_ms":
+                  kb_out_ms, "max_memory_mib": mem})
     results["times"] = times
 
     kernels = [
@@ -1148,8 +1275,8 @@ def main() -> int:
          "ms": times["kernel_a_ms"][1], "plain_ms": times["plain_a_ms"][1],
          "bound_ms": times["bound_a_ms"][1], "bound_by": "operations",
          "library_ms": None},
-        {"name": "fused_ddim_update", "route": "triton",
-         "source": "music_style_transfer_ldm_tpu_torch/ops/ddim_update.py",
+        {"name": "fused_ddim_update", "route": "cuda",
+         "source": "music_style_transfer_ldm_tpu_torch/csrc/ddim_update.cu",
          "replaces": "music_style_transfer_ldm_tpu/ops/pallas/"
                      "ddim_update.py:52",
          "launches": wav_launches["fused_ddim_update"],
@@ -1198,7 +1325,8 @@ def main() -> int:
           "them); E's is the sum of one cuDNN bf16 channels_last F.conv2d "
           "per trunk conv at B=128 (2B images), "
           f"{e_library_ms:.3f} ms (the port never calls it); kernel times "
-          "in the line below: A and C at B=1, B at [8,16,16,32], D's "
+          "in the line below: A and C at B=1, B in place at [8,16,16,32] "
+          "with bf16 eps (the sampler's entry), D's "
           "forward at layer 1 bf16 B=128, E's value at bf16 B=128; the "
           "other shapes beside them above")
     print(smi)

@@ -5,7 +5,8 @@ the reference.  Module names mirror the JAX package's; inside, modules
 are NCHW ``nn.Module``s, and public functions take the JAX package's NHWC
 layout.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``.  Kernels: ``ops/fused_sampler.py`` (CUDA C++,
-``csrc/fused_sampler.cu``), ``ops/ddim_update.py`` (Triton) and
-``ops/fused_mel_image.py`` (CUDA C++, ``csrc/fused_mel_image.cu``).
+``csrc/fused_sampler.cu``), ``ops/ddim_update.py`` (``csrc/ddim_update.cu``),
+``ops/fused_mel_image.py`` (``csrc/fused_mel_image.cu``), and for
+training ``ops/normalized_mse.py`` and ``ops/fused_trunk.py``.
 The user's entry points are ``cli.py`` and ``serving/server.py``.
 """

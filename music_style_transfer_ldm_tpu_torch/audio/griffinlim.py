@@ -18,24 +18,33 @@ from music_style_transfer_ldm_tpu_torch.audio import stft as _stft
 
 def griffin_lim(S: torch.Tensor, *, n_iter: int = 32, hop_length: int = 512,
                 win_length: int | None = None, n_fft: int | None = None,
-                momentum: float = 0.99, length: int | None = None,
+                momentum: float = 0.99, init: str = "random", seed: int = 0,
+                length: int | None = None,
                 init_phase: torch.Tensor | None = None) -> torch.Tensor:
     """Phase-recover audio from magnitudes S [..., n_freq, n_frames].
 
-    init_phase: real angles in radians that seed the iteration.  Without
-    it, one [n_freq, n_frames] field of random phases is drawn from a
-    seed-0 generator and given to every item, so an item's audio does not
-    depend on its batch (the JAX package's PRNGKey(0) phases cannot be
-    reproduced in torch; parity tests pass shared angles).
+    init='random' (librosa's default) draws one [n_freq, n_frames] field
+    of random phases from a generator seeded by ``seed`` (the counterpart
+    of the JAX package's ``key``; the same seed gives the same field) and
+    gives it to every item, so an item's audio does not depend on its
+    batch.  The JAX package's random phases cannot be reproduced in
+    torch; parity tests pass shared angles.  init='zeros' starts from zero
+    phase.  init_phase (real angles in radians, overrides init) seeds the
+    iteration.
     """
     n_fft = n_fft or 2 * (S.shape[-2] - 1)
     win_length = win_length or n_fft
     S = S.float()
     if init_phase is None:
-        g = torch.Generator(device=S.device)
-        g.manual_seed(0)
-        init_phase = torch.rand(S.shape[-2:], generator=g,
-                                device=S.device) * (2.0 * math.pi)
+        if init == "random":
+            g = torch.Generator(device=S.device)
+            g.manual_seed(int(seed))
+            init_phase = torch.rand(S.shape[-2:], generator=g,
+                                    device=S.device) * (2.0 * math.pi)
+        elif init == "zeros":
+            init_phase = torch.zeros(S.shape[-2:], device=S.device)
+        else:
+            raise ValueError(f"unknown init {init!r}")
     phase = init_phase.float()
     angles = torch.polar(torch.ones_like(phase), phase).expand(S.shape)
 
@@ -67,12 +76,13 @@ def mel_to_stft(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
 def mel_to_audio(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
                  hop_length: int = 512, win_length: int | None = None,
                  power: float = 2.0, n_iter: int = 32, nnls_iters: int = 64,
-                 length: int | None = None,
+                 length: int | None = None, seed: int = 0,
                  init_phase: torch.Tensor | None = None) -> torch.Tensor:
     """librosa.feature.inverse.mel_to_audio: [..., n_mels, T] mel power
-    -> [..., n_samples] audio."""
+    -> [..., n_samples] audio; ``seed`` seeds Griffin-Lim's random
+    phases."""
     S = mel_to_stft(M, sr=sr, n_fft=n_fft, power=power,
                     nnls_iters=nnls_iters)
     return griffin_lim(S, n_iter=n_iter, hop_length=hop_length,
                        win_length=win_length, n_fft=n_fft, length=length,
-                       init_phase=init_phase)
+                       seed=seed, init_phase=init_phase)

@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from music_style_transfer_ldm_tpu_torch.diffusion.ddim import sampler_logs
 from music_style_transfer_ldm_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
 )
@@ -23,7 +24,9 @@ from music_style_transfer_ldm_tpu_torch.diffusion.schedule import (
 def dpm_solver_pp_2m(denoise_fn: Callable[[torch.Tensor, torch.Tensor],
                                           torch.Tensor],
                      schedule: DiffusionSchedule, x: torch.Tensor,
-                     times: np.ndarray) -> torch.Tensor:
+                     times: np.ndarray, return_logs: bool = False):
+    """Returns the final f32 latent; with ``return_logs``, (latent, logs)
+    with ``ddim.sampler_logs``'s keys (pred_x0 is each step's x0)."""
     times = np.asarray(times, np.int32)
     if times.ndim == 1 and len(np.unique(times)) != len(times):
         raise ValueError(
@@ -34,15 +37,19 @@ def dpm_solver_pp_2m(denoise_fn: Callable[[torch.Tensor, torch.Tensor],
     ab = schedule.alpha_bars_np
     batch = x.shape[0]
     x = x.float()
+    logs = sampler_logs(times, x) if return_logs else None
     prev_x0 = None
     prev_lam = f(0.0)
-    for t, t_next in zip(times[:-1], times[1:]):
+    for i, (t, t_next) in enumerate(zip(times[:-1], times[1:])):
         a_t, s_t = np.sqrt(ab[t]), np.sqrt(f(1.0) - ab[t])
         a_n, s_n = np.sqrt(ab[t_next]), np.sqrt(f(1.0) - ab[t_next])
         lam_t, lam_n = np.log(a_t / s_t), np.log(a_n / s_n)
         t_b = torch.full((batch,), int(t), dtype=torch.int32, device=x.device)
         eps_hat = denoise_fn(x, t_b)
         x0 = (x - float(s_t) * eps_hat) / float(a_t)
+        if logs is not None:
+            logs["pred_x0"][i].copy_(x0)
+            logs["noise_pred"][i].copy_(eps_hat)
         h = lam_n - lam_t
         if prev_x0 is None:
             D = x0
@@ -51,4 +58,4 @@ def dpm_solver_pp_2m(denoise_fn: Callable[[torch.Tensor, torch.Tensor],
             D = x0 + (x0 - prev_x0) / float(f(2.0) * r)
         x = float(s_n / s_t) * x - float(a_n * np.expm1(-h)) * D
         prev_x0, prev_lam = x0, lam_t
-    return x
+    return x if logs is None else (x, logs)

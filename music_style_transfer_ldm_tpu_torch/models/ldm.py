@@ -193,13 +193,17 @@ def seeded_noise(shape: Tuple[int, ...], seed: int, device) -> torch.Tensor:
 
 
 def _denoise_fn(ldm: LDM, emb: Dict[str, torch.Tensor],
-                guidance: float = 1.0):
-    """(x NCHW, t[B]) -> eps f32 with the style pyramid (NCHW) bound.
+                guidance: float = 1.0, f32: bool = True):
+    """(x NCHW, t[B]) -> eps with the style pyramid (NCHW) bound.
 
     guidance != 1 applies classifier-free guidance
     eps = eps_u + g (eps_c - eps_u), both branches as ONE UNet call on a
-    2B batch; the unconditional branch sees a zeroed pyramid."""
+    2B batch; the unconditional branch sees a zeroed pyramid.  Without
+    guidance and with ``f32=False``, eps stays in the UNet's type (the
+    DDIM update kernel reads bf16 itself); otherwise it is f32."""
     if guidance == 1.0:
+        if not f32:
+            return lambda x, t: ldm.unet(x, t, emb)
         return lambda x, t: ldm.unet(x, t, emb).float()
     emb2 = {k: torch.cat([v, torch.zeros_like(v)]) for k, v in emb.items()}
 
@@ -210,14 +214,29 @@ def _denoise_fn(ldm: LDM, emb: Dict[str, torch.Tensor],
     return fn
 
 
-def _run_sampler(sampler: str, denoise_fn, sched, z_t, times, eta):
+def _run_sampler(sampler: str, ldm: LDM, emb: Dict[str, torch.Tensor],
+                 guidance: float, z_t: torch.Tensor, times, eta,
+                 return_logs: bool = False):
+    """The scan sampler over ``times`` from NCHW ``z_t``; returns the final
+    latent, or (latent, logs) with ``return_logs`` (NCHW logs)."""
+    sched = ldm.schedule
     if sampler == "ddim":
-        return ddim_sample(denoise_fn, sched, z_t, times, eta=eta)
+        return ddim_sample(_denoise_fn(ldm, emb, guidance, f32=False), sched,
+                           z_t, times, eta=eta, return_logs=return_logs)
     if sampler == "dpm++":
         if eta:
             raise ValueError("dpm++ is deterministic; eta must be 0")
-        return dpm_solver_pp_2m(denoise_fn, sched, z_t, times)
+        return dpm_solver_pp_2m(_denoise_fn(ldm, emb, guidance), sched, z_t,
+                                times, return_logs=return_logs)
     raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def _nhwc_logs(logs: dict) -> dict:
+    """Sampler logs [S-1, B, C, H, W] -> the JAX package's [S-1, B, H, W,
+    C]."""
+    return {"timesteps": logs["timesteps"],
+            **{k: logs[k].permute(0, 1, 3, 4, 2)
+               for k in ("pred_x0", "noise_pred")}}
 
 
 @torch.no_grad()
@@ -226,14 +245,17 @@ def transfer_decoded(ldm: LDM, content: torch.Tensor, style: torch.Tensor,
                      sampler: str = "ddim", steps: Optional[int] = None,
                      guidance: float = 1.0,
                      noise: Optional[torch.Tensor] = None,
-                     seeds=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan-sampler transfer; returns (decoded NHWC [0, 1], z_t)."""
+                     seeds=0, return_logs: bool = False):
+    """The scan-sampler transfer; returns (decoded NHWC [0, 1], z_t), and
+    the sampler's NHWC logs third with ``return_logs``."""
     z_t = ldm.noised_latents(content, num_timesteps, noise, seeds)
     emb = ldm.style_encoder(_nchw(style.to(ldm.device)).to(ldm.dtype))
     times = transfer_time_grid(num_timesteps, steps)
-    sampled = _run_sampler(sampler, _denoise_fn(ldm, emb, guidance),
-                           ldm.schedule, z_t, times, eta)
-    return ldm.decode_unit(sampled), z_t
+    sampled = _run_sampler(sampler, ldm, emb, guidance, z_t, times, eta,
+                           return_logs)
+    if not return_logs:
+        return ldm.decode_unit(sampled), z_t
+    return ldm.decode_unit(sampled[0]), z_t, _nhwc_logs(sampled[1])
 
 
 def content_style_transfer(ldm: LDM, content: torch.Tensor,
@@ -242,7 +264,7 @@ def content_style_transfer(ldm: LDM, content: torch.Tensor,
                            steps: Optional[int] = None,
                            guidance: float = 1.0,
                            noise: Optional[torch.Tensor] = None,
-                           seeds=0) -> Tuple[torch.Tensor, torch.Tensor]:
+                           seeds=0, return_logs: bool = False):
     """SDEdit content+style transfer, the product path.
 
     content, style: NHWC [B, 128, 128, 1] in [0, 1].  num_timesteps must
@@ -251,12 +273,15 @@ def content_style_transfer(ldm: LDM, content: torch.Tensor,
     seeded by ``seeds`` draw it.  sampler 'dpm++' with steps < N walks a
     coarse DPM-Solver++(2M) grid; guidance != 1 applies classifier-free
     style guidance.  Returns (decoded, z_t_decoded), NHWC in [0, 1] and
-    [-1, 1]."""
-    decoded, z_t = transfer_decoded(ldm, content, style, num_timesteps, eta,
-                                    sampler, steps, guidance, noise, seeds)
+    [-1, 1]; with ``return_logs`` also the sampler's per-step logs third,
+    as the JAX package's: {"timesteps": [S-1], "pred_x0", "noise_pred":
+    [S-1, B, 16, 16, latent_dim]}."""
+    out = transfer_decoded(ldm, content, style, num_timesteps, eta,
+                           sampler, steps, guidance, noise, seeds,
+                           return_logs)
     with torch.no_grad():
-        z_t_decoded = _nhwc(ldm.decoder(z_t.to(ldm.dtype))).float()
-    return decoded, z_t_decoded
+        z_t_decoded = _nhwc(ldm.decoder(out[1].to(ldm.dtype))).float()
+    return (out[0], z_t_decoded, *out[2:])
 
 
 @torch.no_grad()
@@ -265,10 +290,11 @@ def style_ddim_sample(ldm: LDM, z_shape: Tuple[int, ...],
                       eta: float = 0.0, sampler: str = "ddim",
                       guidance: float = 1.0, latent_stats=None,
                       noise: Optional[torch.Tensor] = None,
-                      seed: int = 0) -> torch.Tensor:
+                      seed: int = 0, return_logs: bool = False):
     """Style-conditioned generation from noise over
     ``generation_time_grid(T, timesteps)``; returns decoded NHWC images in
-    [0, 1].
+    [0, 1], and with ``return_logs`` (images, NHWC logs) as
+    ``content_style_transfer``'s.
 
     z_shape is NHWC [B, 16, 16, latent_dim].  ``noise`` (NHWC) is the
     draw as given; otherwise one generator seeded by ``seed`` draws it.
@@ -289,9 +315,11 @@ def style_ddim_sample(ldm: LDM, z_shape: Tuple[int, ...],
                                                + (1.0 - ab)) * eps
     emb = ldm.style_encoder(_nchw(style.to(dev)).to(ldm.dtype))
     times = generation_time_grid(ldm.num_timesteps, timesteps)
-    sampled = _run_sampler(sampler, _denoise_fn(ldm, emb, guidance),
-                           ldm.schedule, _nchw(eps), times, eta)
-    return ldm.decode_unit(sampled)
+    sampled = _run_sampler(sampler, ldm, emb, guidance, _nchw(eps), times,
+                           eta, return_logs)
+    if not return_logs:
+        return ldm.decode_unit(sampled)
+    return ldm.decode_unit(sampled[0]), _nhwc_logs(sampled[1])
 
 
 @torch.no_grad()

@@ -5,7 +5,8 @@
   once before traffic (kernel builds and JIT happen there).
 * Buckets up to ``fused_bucket_max`` take the fused trajectory kernel
   (sampler 'fused' or 'fused-dpm++'); larger buckets take the scan
-  sampler, whose DDIM step is the Triton update kernel.
+  sampler, whose DDIM step is the update kernel B
+  (``ops/ddim_update.py``).
 * Each request's noise comes from a generator seeded by its own seed, so
   its result does not depend on how requests were grouped.
 * ``_finish_outputs`` inverts the decoded images to audio on the device:

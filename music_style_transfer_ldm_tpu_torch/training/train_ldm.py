@@ -1,7 +1,9 @@
 """Latent diffusion training (the LDM phase).
 
 One step: draw t ~ U{0..T-1}, the q-sample noise and the style-dropout
-mask (each may be given instead), the training forward with the encoder
+mask (each may be given instead) from a generator re-seeded from
+(``TrainConfig.seed``, step), so a run resumed from a checkpoint draws
+what the uninterrupted run drew; then the training forward with the encoder
 frozen on its running BatchNorm statistics and the decoder's BatchNorm
 in train mode, the three losses, backward, Adam over the non-encoder
 parameters, and the EMA.  On the card the model computes in bf16 under
@@ -47,6 +49,20 @@ from music_style_transfer_ldm_tpu_torch.training.state import (
 )
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The 64-bit seed of one step's draws: splitmix64 of (seed, step),
+    the counterpart of the JAX trainer's fold_in of the step into its
+    base key."""
+    z = (((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 METRIC_KEYS = ("total_loss", "compression_loss", "denoising_loss",
                "style_loss")
 
@@ -82,7 +98,6 @@ class LDMTrainer:
                                     patience=ct.ldm_lr_patience,
                                     min_lr=ct.lr_min)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(ct.seed + 123)
 
     # ---------------- state ------------------------------------------------
 
@@ -142,10 +157,11 @@ class LDMTrainer:
               style_drop_mask: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step; t, noise and the style-drop mask are drawn
-        from the trainer's generator unless given.  Metrics stay on the
-        device."""
+        unless given, from the trainer's generator seeded by
+        ``step_seed(seed, state.step)``.  Metrics stay on the device."""
         cfg = self.config
         batch, dev, gen = content.shape[0], self.device, self.generator
+        gen.manual_seed(step_seed(cfg.train.seed, state.step))
         if t is None:
             t = torch.randint(0, cfg.diffusion.num_timesteps, (batch,),
                               device=dev, generator=gen)

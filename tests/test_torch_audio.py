@@ -125,3 +125,37 @@ def test_mel_to_audio_shape_and_batch_independence():
     assert torch.isfinite(both).all()
     np.testing.assert_allclose(both[1:].numpy(), one.numpy(),
                                atol=1e-5 * float(one.abs().max()))
+
+
+@pytest.mark.parametrize("length", [16000, None])
+def test_griffin_lim_zero_init_matches_jax(length):
+    M = _mel_power(6)
+    S = np.asarray(jgl.mel_to_stft(jnp.asarray(M), nnls_iters=16))
+    want = np.asarray(jgl.griffin_lim(jnp.asarray(S), n_iter=4,
+                                      init="zeros", length=length))
+    got = griffinlim.griffin_lim(torch.tensor(S), n_iter=4, init="zeros",
+                                 length=length).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want,
+                               atol=GL_ATOL_REL * np.abs(want).max())
+
+
+def test_griffin_lim_random_init_is_seeded():
+    """The random start is one field from ``seed``: seed 0 is the default,
+    another seed another field; an unknown init is refused."""
+    S = torch.tensor(np.asarray(jgl.mel_to_stft(jnp.asarray(_mel_power(7)),
+                                                nnls_iters=8)))
+    default = griffinlim.griffin_lim(S, n_iter=2)
+    np.testing.assert_array_equal(
+        griffinlim.griffin_lim(S, n_iter=2, init="random", seed=0).numpy(),
+        default.numpy())
+    np.testing.assert_array_equal(
+        griffinlim.griffin_lim(S, n_iter=2, seed=3).numpy(),
+        griffinlim.griffin_lim(S, n_iter=2, seed=3).numpy())
+    other = griffinlim.griffin_lim(S, n_iter=2, seed=3)
+    assert np.abs(other.numpy() - default.numpy()).max() > 1e-3
+    audio = griffinlim.mel_to_audio(torch.tensor(_mel_power(7)), n_iter=2,
+                                    nnls_iters=8, seed=3)
+    assert torch.isfinite(audio).all()
+    with pytest.raises(ValueError, match="unknown init"):
+        griffinlim.griffin_lim(S, n_iter=1, init="ones")

@@ -198,6 +198,118 @@ def test_mel_image_wrapper_routes_cpu_to_plain_version():
     assert cost["bytes"] == 524_800 + 599_560
 
 
+@pytest.fixture(scope="module")
+def slaney_bands():
+    fb = _t(tmel.mel_filterbank_np(22050, 2048, 128))
+    return fb, fm.mel_bands(fb).numpy()
+
+
+def test_mel_bands_cover_every_nonzero(slaney_bands):
+    fb, bands = slaney_bands
+    assert bands.dtype == np.int32 and bands.shape == (128, 2)
+    nz = fb.numpy() != 0
+    col = np.arange(fb.shape[1])
+    for m, (lo, hi) in enumerate(bands):
+        assert nz[m, lo] and nz[m, hi - 1]
+        assert not nz[m, (col < lo) | (col >= hi)].any()
+    width = bands[:, 1] - bands[:, 0]
+    # the Slaney filterbank at 22,050 Hz, n_fft 2048: 4 to 53 bins a row
+    assert (width.min(), width.max(), width.sum()) == (4, 53, 2018)
+    assert width.sum() == nz.sum()
+
+
+def test_mel_bands_dense_and_empty_rows():
+    rng = np.random.RandomState(2)
+    dense = _t(rng.rand(6, 40).astype(np.float32) + 0.1)
+    np.testing.assert_array_equal(fm.mel_bands(dense).numpy(),
+                                  [[0, 40]] * 6)
+    sparse = np.zeros((4, 40), np.float32)
+    sparse[1, 7] = 1.0
+    sparse[2, 3:9] = 0.5
+    sparse[2, 5] = 0.0                      # a zero inside a band
+    sparse[3, 39] = np.nan                  # NaN counts as nonzero
+    np.testing.assert_array_equal(fm.mel_bands(_t(sparse)).numpy(),
+                                  [[0, 0], [7, 8], [3, 9], [39, 40]])
+
+
+@pytest.mark.parametrize("sr,n_fft,n_mels", [(22050, 2048, 128),
+                                              (16000, 1024, 64),
+                                              (44100, 2048, 256)])
+def test_row_groups_partition_the_rows(sr, n_fft, n_mels):
+    fb = _t(tmel.mel_filterbank_np(sr, n_fft, n_mels))
+    bands = fm.mel_bands(fb).numpy()
+    groups = fm.row_groups(bands)
+    assert groups[0, 0] == 0 and groups[-1, 1] == n_mels
+    np.testing.assert_array_equal(groups[1:, 0], groups[:-1, 1])
+    rows = groups[:, 1] - groups[:, 0]
+    assert rows.min() >= 1 and rows.max() <= fm.MAX_ROWS
+    width = np.maximum(bands[:, 1] - bands[:, 0], 0)
+    cap = -(-int(width.sum()) // fm.GROUP_TARGET)
+    for r0, r1, lo, hi in groups:
+        live = bands[r0:r1][width[r0:r1] > 0]
+        assert lo == live[:, 0].min() and hi == live[:, 1].max()
+        # balanced by band width: over the cap only as one row
+        assert r1 - r0 == 1 or width[r0:r1].sum() <= cap
+    grid = fm.mel_image_grid(fb, 130)
+    assert grid["ctas_per_item"] == len(groups)
+    assert grid["band_macs"] == width.sum() * 130
+    if (sr, n_fft, n_mels) == (22050, 2048, 128):
+        # the flagship's grid at B=1 fills >= 64 of 132 SMs
+        assert len(groups) >= 64 and grid["band_macs"] == 2018 * 130
+
+
+def test_mel_image_band_cost(slaney_bands):
+    fb, bands = slaney_bands
+    # Slaney rows cover bins 1 .. 1023 of 1025
+    for B in (1, 8):
+        cost = fm.mel_image_band_cost(fb, 130, B)
+        assert cost["flops"] == 2 * 2018 * 130 * B
+        assert cost["bytes"] == 4 * (2018 + B * (1023 * 130 + 128 * 130))
+    dense = _t(np.ones((6, 40), np.float32))
+    assert fm.mel_image_band_cost(dense, 7, 2) == fm.mel_image_cost(
+        6, 40, 7, 2)
+
+
+def test_row_groups_with_empty_and_dense_rows():
+    bands = np.asarray([[0, 0], [0, 0], [3, 9], [0, 0], [0, 500]], np.int32)
+    groups = fm.row_groups(bands)
+    assert groups[-1].tolist() == [4, 5, 0, 500]     # the wide row alone
+    assert all(g[1] - g[0] >= 1 for g in groups)
+    empty = fm.row_groups(np.zeros((30, 2), np.int32))
+    assert empty[:, 2:].max() == 0 and empty[:, 1].max() == 30
+    assert (empty[:, 1] - empty[:, 0]).max() <= fm.MAX_ROWS
+
+
+def test_band_limited_sum_equals_the_dense_sum():
+    """The kernel's order: each row's products in ascending k from +0,
+    its band only.  Outside the band a product is +0, so for finite
+    spectra the two sums are equal bit for bit (f32, one rounding per
+    op); a NaN outside a row's band no longer reaches that row."""
+    rng = np.random.RandomState(9)
+    fb = tmel.mel_filterbank_np(8000, 128, 12)
+    bands = fm.mel_bands(_t(fb)).numpy()
+    S = (rng.randn(65, 7) ** 2).astype(np.float32)
+    k = np.arange(65)[None, :]
+    in_band = (k >= bands[:, :1]) & (k < bands[:, 1:])
+    dense = np.zeros((12, 7), np.float32)
+    band = np.zeros((12, 7), np.float32)
+    for j in range(65):
+        prod = fb[:, j:j + 1] * S[j][None, :]
+        dense = dense + prod
+        band = np.where(in_band[:, j:j + 1], band + prod, band)
+    np.testing.assert_array_equal(band, dense)
+    S[0, 3] = np.nan                     # bin 0: in no Slaney band
+    assert not in_band[:, 0].any()
+    with np.errstate(invalid="ignore"):
+        nan_dense = np.einsum("mf,ft->mt", fb, S)
+    assert np.isnan(nan_dense[:, 3]).all()
+    band = np.zeros((12, 7), np.float32)
+    for j in range(65):
+        band = np.where(in_band[:, j:j + 1],
+                        band + fb[:, j:j + 1] * S[j][None, :], band)
+    assert np.isfinite(band).all()
+
+
 # ---------------------------------------------------------------------------
 # Host STFT, WAV I/O, resampling
 # ---------------------------------------------------------------------------

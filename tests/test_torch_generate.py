@@ -97,6 +97,37 @@ def test_style_sample_matches_jax(pair, sampler, guidance, stats):
                                atol=SAMPLE_ATOL)
 
 
+@pytest.mark.parametrize("sampler,guidance", [("ddim", 1.0),
+                                              ("dpm++", 1.0),
+                                              ("ddim", 2.5)])
+def test_style_sample_logs_match_jax(pair, sampler, guidance):
+    """return_logs: the per-step pred_x0 and noise_pred of generation, in
+    the JAX package's NHWC layout; without it the images alone, as
+    before."""
+    model, variables, port, styles = pair
+    z_shape = (2, 16, 16, 32)
+    want, wlogs = jax_style_sample(
+        model, variables, jax.random.PRNGKey(5), z_shape,
+        jnp.asarray(styles), timesteps=STEPS, sampler=sampler,
+        guidance=guidance, return_logs=True)
+    noise = torch.tensor(_noise(5, z_shape))
+    got, logs = style_ddim_sample(
+        port, z_shape, torch.tensor(styles), timesteps=STEPS,
+        sampler=sampler, guidance=guidance, noise=noise, return_logs=True)
+    alone = style_ddim_sample(
+        port, z_shape, torch.tensor(styles), timesteps=STEPS,
+        sampler=sampler, guidance=guidance, noise=noise)
+    assert torch.equal(alone, got)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=SAMPLE_ATOL)
+    np.testing.assert_array_equal(logs["timesteps"].numpy(),
+                                  np.asarray(wlogs["timesteps"]))
+    for k in ("pred_x0", "noise_pred"):
+        assert tuple(logs[k].shape) == (STEPS - 1, *z_shape)
+        np.testing.assert_allclose(logs[k].numpy(), np.asarray(wlogs[k]),
+                                   atol=SAMPLE_ATOL)
+
+
 @pytest.mark.parametrize("sampler,batch,atol", [
     ("ddim", 2, FUSED_ATOL), ("dpm++", 1, DPM_ATOL)])
 def test_fused_style_sample_matches_jax_kernel(pair, sampler, batch, atol):

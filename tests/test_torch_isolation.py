@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no flax, no JAX package, no top-level
-triton; and its entry points refuse to run on the CPU unless asked."""
+"""The port stands alone: no JAX, no flax, no JAX package, no triton
+(every kernel is CUDA C++ built with nvcc); and its entry points refuse
+to run on the CPU unless asked."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "music_style_transfer_ldm_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "music_style_transfer_ldm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "music_style_transfer_ldm_tpu",
+             "triton")
 
 
 def _sources():
@@ -21,22 +23,20 @@ def _sources():
 
 
 def _imports(tree):
-    """(module name, at top level) for every import in a module."""
-    top = {id(n) for n in tree.body}
+    """The module name of every import in a module, at any depth."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
-                yield a.name, id(node) in top
+                yield a.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module, id(node) in top
+            yield node.module
 
 
 def test_no_forbidden_imports():
     bad = []
     for path in _sources():
-        for name, at_top in _imports(ast.parse(path.read_text())):
-            root = name.split(".")[0]
-            if root in FORBIDDEN or (root == "triton" and at_top):
+        for name in _imports(ast.parse(path.read_text())):
+            if name.split(".")[0] in FORBIDDEN:
                 bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert not bad, bad
 
@@ -71,7 +71,7 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     sent to the plain version."""
     from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
     from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
-        fused_ddim_update,
+        ddim_update_, fused_ddim_update, step_scalars,
     )
     from music_style_transfer_ldm_tpu_torch.ops.fused_mel_image import (
         fused_mel_unit_image,
@@ -79,6 +79,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     x = torch.zeros(1, 16, 16, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         fused_ddim_update(x, x, 0.5, 0.6)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ddim_update_(x, x, step_scalars(0.5, 0.6, 0.0))
     ops = fs.FusedOperands([], [], [], x, x, torch.float32, 1)
     with pytest.raises(RuntimeError, match="no kernel"):
         fs.fused_ddim_sample(ops, x, 1)

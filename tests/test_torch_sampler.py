@@ -19,6 +19,9 @@ from music_style_transfer_ldm_tpu.diffusion.dpm import (
     dpm_solver_pp_2m as jdpm,
 )
 from music_style_transfer_ldm_tpu.models.ldm import LDM as JaxLDM
+from music_style_transfer_ldm_tpu.models.ldm import (
+    content_style_transfer as jax_transfer,
+)
 from music_style_transfer_ldm_tpu.ops.pallas import fused_sampler as jfs
 from music_style_transfer_ldm_tpu.ops.pallas.ddim_update import (
     fused_ddim_update as jax_ddim_update,
@@ -33,13 +36,15 @@ from music_style_transfer_ldm_tpu_torch.models.ldm import (
 )
 from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
 from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
-    ddim_update_reference, fused_ddim_update,
+    ddim_step_reference, ddim_update_, ddim_update_reference,
+    fused_ddim_update, step_scalars,
 )
 
 SCAN_ATOL = 1e-4    # latents after a scan trajectory (f32, sum order)
 FUSED_ATOL = 1e-5   # fused plain version vs JAX packed executor, DDIM
 DPM_ATOL = 1e-4     # ... DPM++(2M), as tests/test_fused_sampler.py uses
 UPDATE_ATOL = 1e-6  # one elementwise DDIM step, f32
+LOG_ATOL = 1e-4     # per-step logs of a scan trajectory (as SCAN_ATOL)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -217,6 +222,132 @@ def test_ddim_update_matches_jax_kernel(eta):
         fused_ddim_update(torch.tensor(x), torch.tensor(e), ab_t, ab_n,
                           eta).numpy(), got.numpy())
     assert fused_ddim_update.launches == before
+
+
+@pytest.mark.parametrize("eps_type", ["f32", "bf16"])
+@pytest.mark.parametrize("eta", [0.0, 0.5])
+@pytest.mark.parametrize("log_x0", [False, True])
+def test_ddim_update_in_place_matches_jax_kernel(eps_type, eta, log_x0):
+    """The sampler's in-place entry against the out-of-place wrapper and
+    the JAX Pallas kernel in interpret mode; bf16 eps is given to JAX as
+    its exact f32 value."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(8, 16, 16, 32).astype(np.float32)
+    e = torch.tensor(rng.randn(8, 16, 16, 32).astype(np.float32))
+    if eps_type == "bf16":
+        e = e.bfloat16()
+    e32 = e.float().numpy()
+    ab_t, ab_n = 0.6310, 0.6421
+    want = np.asarray(jax_ddim_update(jnp.asarray(x), jnp.asarray(e32),
+                                      jnp.float32(ab_t), jnp.float32(ab_n),
+                                      jnp.float32(eta), interpret=True))
+    out_of_place = fused_ddim_update(torch.tensor(x), e, ab_t, ab_n, eta)
+    xt = torch.tensor(x)
+    x0 = torch.full_like(xt, np.nan) if log_x0 else None
+    before = fused_ddim_update.launches
+    assert ddim_update_(xt, e, step_scalars(ab_t, ab_n, eta), x0) is xt
+    assert fused_ddim_update.launches == before   # plain version ran
+    np.testing.assert_allclose(xt.numpy(), want, atol=UPDATE_ATOL)
+    np.testing.assert_array_equal(xt.numpy(), out_of_place.numpy())
+    if log_x0:
+        want_x0 = (x - np.sqrt(np.float32(1) - np.float32(ab_t)) * e32) \
+            / np.sqrt(np.float32(ab_t))
+        np.testing.assert_allclose(x0.numpy(), want_x0, atol=UPDATE_ATOL)
+        np.testing.assert_array_equal(
+            x0.numpy(), ddim_step_reference(
+                torch.tensor(x), e, step_scalars(ab_t, ab_n, eta))[1].numpy())
+
+
+def test_ddim_update_in_place_refuses_what_it_cannot_update():
+    x = torch.zeros(2, 32, 16, 16)
+    sc = step_scalars(0.5, 0.6, 0.0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ddim_update_(x.bfloat16(), x, sc)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ddim_update_(x.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1), sc)
+    with pytest.raises(ValueError, match="x0_out"):
+        ddim_update_(x, x, sc, torch.zeros(2, 32, 16, 15))
+    with pytest.raises(ValueError, match="differ"):
+        ddim_update_(x, x[:1], sc)
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "dpm++"])
+def test_samplers_leave_the_start_latent_untouched(pair, sampler):
+    port = pair[2]
+    z = torch.tensor(pair[4][:1]).permute(0, 3, 1, 2).contiguous()
+    keep = z.clone()
+    fn = ddim.ddim_sample if sampler == "ddim" else dpm_solver_pp_2m
+    out = fn(lambda x, t: 0.1 * x, port.schedule, z,
+             ddim.transfer_time_grid(6))
+    assert torch.equal(z, keep)
+    assert not torch.equal(out, keep)
+
+
+@pytest.mark.parametrize("sampler,steps", [("ddim", None), ("dpm++", 7)])
+def test_sampler_logs_match_jax(pair, sampler, steps):
+    """return_logs stacks the per-step pred_x0 and noise_pred as the JAX
+    samplers do; DDIM's pred_x0 is the update kernel's second output."""
+    model, variables, port, styles, z_t = pair
+    emb = _emb(model, variables, styles[:2])
+    times = jddim.transfer_time_grid(14, steps)
+
+    def jfn(x, t):
+        return model.apply(variables, x, t, emb, method=JaxLDM.denoise)
+    jsampler = jddim.ddim_sample if sampler == "ddim" else jdpm
+    want, wlogs = jsampler(jfn, model.schedule, jnp.asarray(z_t[:2]),
+                           times, return_logs=True)
+    temb = {k: torch.tensor(np.asarray(v)).permute(0, 3, 1, 2)
+            for k, v in emb.items()}
+    tsampler = ddim.ddim_sample if sampler == "ddim" else dpm_solver_pp_2m
+    with torch.no_grad():
+        got, logs = tsampler(lambda x, t: port.unet(x, t, temb).float(),
+                             port.schedule,
+                             torch.tensor(z_t[:2]).permute(0, 3, 1, 2),
+                             times, return_logs=True)
+    assert set(logs) == set(wlogs) == {"timesteps", "pred_x0", "noise_pred"}
+    np.testing.assert_array_equal(logs["timesteps"].numpy(),
+                                  np.asarray(wlogs["timesteps"]))
+    for k in ("pred_x0", "noise_pred"):
+        assert tuple(logs[k].shape) == (len(times) - 1, 2, 32, 16, 16)
+        np.testing.assert_allclose(logs[k].permute(0, 1, 3, 4, 2).numpy(),
+                                   np.asarray(wlogs[k]), atol=LOG_ATOL)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("sampler,steps", [("ddim", None), ("dpm++", 7)])
+def test_transfer_logs_match_jax(pair, sampler, steps):
+    """content_style_transfer(return_logs=True) against the JAX package's,
+    its per-item noise injected; the logs come back NHWC."""
+    model, variables, port, styles, _ = pair
+    content = np.random.RandomState(8).rand(2, 128, 128, 1).astype(
+        np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)
+    want, want_zt, wlogs = jax_transfer(
+        model, variables, keys, jnp.asarray(content),
+        jnp.asarray(styles[:2]), num_timesteps=14, return_logs=True,
+        sampler=sampler, steps=steps)
+    z_0 = model.apply(variables, jnp.asarray(content), method=JaxLDM.encode)
+    noise = np.asarray(jax.vmap(
+        lambda k, z: jax.random.normal(k, z.shape, jnp.float32))(keys, z_0))
+    plain = content_style_transfer(
+        port, torch.tensor(content), torch.tensor(styles[:2]),
+        num_timesteps=14, sampler=sampler, steps=steps,
+        noise=torch.tensor(noise))
+    got, got_zt, logs = content_style_transfer(
+        port, torch.tensor(content), torch.tensor(styles[:2]),
+        num_timesteps=14, sampler=sampler, steps=steps,
+        noise=torch.tensor(noise), return_logs=True)
+    assert len(plain) == 2 and torch.equal(plain[0], got)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOG_ATOL)
+    np.testing.assert_allclose(got_zt.numpy(), np.asarray(want_zt),
+                               atol=LOG_ATOL)
+    np.testing.assert_array_equal(logs["timesteps"].numpy(),
+                                  np.asarray(wlogs["timesteps"]))
+    for k in ("pred_x0", "noise_pred"):
+        assert logs[k].shape == wlogs[k].shape
+        np.testing.assert_allclose(logs[k].numpy(), np.asarray(wlogs[k]),
+                                   atol=LOG_ATOL)
 
 
 def test_guards(pair):

@@ -414,6 +414,43 @@ def test_train_loop_checkpoints_and_resume(tmp_path):
         ckpt.restore_train_state(tmp_path / "plain.pt", fresh)
 
 
+def test_resumed_run_draws_what_the_uninterrupted_run_drew(tmp_path):
+    """2 steps, then 2 more resumed from ldm_0.pt, against 4 steps in one
+    run: the same t, noise and style-drop draws at every step (each
+    step's generator is seeded from (seed, step)), and the same
+    parameters at the end."""
+    cfg = tiny(default_config(), style_dropout=0.5)
+    rng = np.random.RandomState(4)
+    data = [((rng.rand(64, 64, 1).astype(np.float32), "a"),
+             (rng.rand(64, 64, 1).astype(np.float32), "b"))
+            for _ in range(8)]
+    loader = BatchLoader(data, 4, shuffle=False, num_threads=1)
+
+    def run(**kw):
+        trainer = LDMTrainer(cfg, perceptual=False, device="cpu")
+        draws, losses = [], trainer._losses
+
+        def spy(model, content, style, t, noise=None, style_drop_mask=None):
+            draws.append((t.clone(), noise.clone(), style_drop_mask.clone()))
+            return losses(model, content, style, t, noise, style_drop_mask)
+        trainer._losses = spy
+        return trainer.train(loader, **kw), draws
+
+    full, d_full = run(num_epochs=2, out_dir=tmp_path / "full")
+    _, d_first = run(num_epochs=1, out_dir=tmp_path / "first")
+    resumed, d_rest = run(num_epochs=2, out_dir=tmp_path / "rest",
+                          resume_from=tmp_path / "first" / "ldm_0.pt")
+    assert len(d_full) == 4 and (len(d_first), len(d_rest)) == (2, 2)
+    for step, (a, b) in enumerate(zip(d_full, d_first + d_rest)):
+        for name, x, y in zip(("t", "noise", "style_drop_mask"), a, b):
+            assert torch.equal(x, y), (step, name)
+    assert not torch.equal(d_full[0][1], d_full[2][1])  # steps differ
+    assert full.step == resumed.step == 4
+    got = resumed.model.state_dict()
+    for k, v in full.model.state_dict().items():
+        assert torch.equal(v, got[k]), k
+
+
 def test_metric_logger_resume_truncates_replayed_epochs(tmp_path):
     path = tmp_path / "metrics.csv"
     first = MetricLogger(path)
