@@ -35,13 +35,29 @@ Phases, in order; any failure exits non-zero:
      trained checkpoint, with the launch counts of all five kernels read
      around it; then one f32 step at B=8 through the kernels against the
      same step through the plain versions;
+  6b. the reference's two-phase recipe: ``cli train --model autoencoder
+     --epochs 2`` at the defaults (B=128, f32, LPIPS) on the same PNGs,
+     ``cli train --model ldm --pretrained-ae`` from its result (the
+     frozen encoder checked bit for bit in ``ldm_final.pt``), ``cli
+     transfer`` from that, and ``load_ldm``'s fallback from a corrupt
+     full checkpoint to the AE checkpoint; seeded reference-layout
+     ``encoder.pth`` / ``decoder.pth`` / ``vggish.pth`` through ``cli
+     import-torch`` and one LDM epoch from them (the imported trunk feeds
+     kernel E); three AE steps at B=128 f32 with the imported trunk as
+     the VGGish compression metric (kernel D's forward and target-side
+     backward), and one f32 AE step at B=8 through the kernels against
+     the plain versions, under ``debug_mode``; the launch counts read
+     around each;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
      shared memory per block and launch plan; kernels B and C back to
      back, and also their device time per launch (torch.profiler) and
-     host time per call (1,000 calls, no sync); and a profile of one
-     training step.
+     host time per call (1,000 calls, no sync); a profile of one
+     training step; the AE step at B=128 f32 with LPIPS and with VGGish
+     compression (host clock, device time, idle share, peak memory); and
+     kernel D in f32 at layer 1, B=128, held against its plain version
+     (m, statistics, target gradient) and timed beside its bytes bound.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -290,6 +306,80 @@ def trunk_conv_checks(ft, vgg16, ivgg16, B, card, g) -> dict:
     return out
 
 
+def profiled_kernels(fn, log_dir: Path):
+    """[(device us, kernel name)] of the card's kernels in one call of fn,
+    largest first, from the port's ``utils/profiling.py trace`` of that
+    call (which also writes it to ``log_dir/trace.json``)."""
+    from music_style_transfer_ldm_tpu_torch.utils.profiling import trace
+    with trace(log_dir) as prof:
+        fn()
+    out = []
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue      # host-side ops; their kernels are listed apart
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            out.append((dev_us, evt.key))
+    return sorted(out, reverse=True)
+
+
+def grad_err_of_max(got: dict, want: dict) -> float:
+    """Max over parameters of max |got - want| / max |want|, skipping
+    gradients below 1e-5 of the largest (a conv bias feeding a train-mode
+    BatchNorm, whose true gradient is 0)."""
+    top = max(v.abs().max().item() for v in want.values())
+    err = 0.0
+    for k, v in want.items():
+        scale = v.abs().max().item()
+        if scale < 1e-5 * top:
+            continue
+        err = max(err, (got[k] - v).abs().max().item() / scale)
+    return err
+
+
+def write_reference_weights(out: Path, seed: int) -> dict:
+    """Seeded random weights in the reference's own key layouts (no real
+    weights are in the repository): its encoder and decoder Sequentials
+    as ``encoder.pth`` / ``decoder.pth``, and torchvggish's ``features``
+    as ``vggish.pth``.  Returns their paths."""
+    import numpy as np
+    import torch
+    from torch import nn
+    torch.manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    enc = nn.Sequential(
+        nn.Conv2d(1, 64, 3, 2, 1), nn.BatchNorm2d(64), nn.ReLU(),
+        nn.Conv2d(64, 128, 3, 2, 1), nn.BatchNorm2d(128), nn.ReLU(),
+        nn.Conv2d(128, 32, 3, 2, 1), nn.BatchNorm2d(32))
+    dec = nn.Sequential(
+        nn.ConvTranspose2d(32, 128, 4, 2, 1), nn.BatchNorm2d(128), nn.ReLU(),
+        nn.ConvTranspose2d(128, 64, 4, 2, 1), nn.BatchNorm2d(64), nn.ReLU(),
+        nn.ConvTranspose2d(64, 1, 4, 2, 1), nn.Tanh())
+    with torch.no_grad():
+        for m in list(enc) + list(dec):
+            if isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.tensor(0.1 * rng.randn(n)))
+                m.running_var.copy_(torch.tensor(0.5 + rng.rand(n)))
+    vggish = {}
+    for cin, cout, idx in ((1, 64, 0), (64, 128, 3), (128, 256, 6),
+                           (256, 256, 8), (256, 512, 11), (512, 512, 13)):
+        vggish[f"features.{idx}.weight"] = torch.tensor(
+            rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin), dtype=torch.float32)
+        vggish[f"features.{idx}.bias"] = torch.tensor(
+            0.01 * rng.randn(cout), dtype=torch.float32)
+    paths = {"encoder": out / "encoder.pth", "decoder": out / "decoder.pth",
+             "vggish": out / "vggish.pth"}
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save({f"encoder.{k}": v for k, v in enc.state_dict().items()},
+               paths["encoder"])
+    torch.save({f"decoder.{k}": v for k, v in dec.state_dict().items()},
+               paths["decoder"])
+    torch.save(vggish, paths["vggish"])
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -318,7 +408,12 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.losses.vggish import (
         VGGishFeatures,
     )
-    from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
+    from music_style_transfer_ldm_tpu_torch.models.autoencoder import (
+        SpectrogramEncoder,
+    )
+    from music_style_transfer_ldm_tpu_torch.models.ldm import (
+        build_ldm, load_ldm,
+    )
     from music_style_transfer_ldm_tpu_torch.ops import fused_mel_image as fm
     from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
     from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
@@ -332,13 +427,19 @@ def main() -> int:
     )
     from music_style_transfer_ldm_tpu_torch.serving.server import serve
     from music_style_transfer_ldm_tpu_torch.training.checkpoint import (
-        save_checkpoint,
+        load_autoencoder, load_feature_checkpoint, save_checkpoint,
+    )
+    from music_style_transfer_ldm_tpu_torch.training.train_autoencoder import (
+        AETrainer,
     )
     from music_style_transfer_ldm_tpu_torch.training.train_ldm import (
         LDMTrainer,
     )
     from music_style_transfer_ldm_tpu_torch.utils.png import (
         read_png_gray, write_png_gray,
+    )
+    from music_style_transfer_ldm_tpu_torch.utils.profiling import (
+        StepTimer, debug_mode,
     )
 
     dev = torch.device("cuda")
@@ -981,14 +1082,7 @@ def main() -> int:
         (mk, gk8), (mr, gr8) = runs["auto"], runs["plain"]
         loss_err = max(abs(mk[k].item() - mr[k].item()) / abs(mr[k].item())
                        for k in mr)
-        top = max(v.abs().max().item() for v in gr8.values())
-        grad_err = 0.0
-        for k, v in gr8.items():
-            scale = v.abs().max().item()
-            if scale < 1e-5 * top:   # a bias feeding a train-mode BN: 0
-                continue
-            grad_err = max(grad_err,
-                           (gk8[k] - v).abs().max().item() / scale)
+        grad_err = grad_err_of_max(gk8, gr8)
         err_step[tag] = {"loss": loss_err, "grad_of_max": grad_err}
         print(f"f32 step B=8 ({tag}): kernels vs plain versions, losses rel "
               f"{loss_err:.3g} (tol {TOL_STEP_LOSS}), parameter gradients "
@@ -998,6 +1092,174 @@ def main() -> int:
               "with the plain versions")
     torch.backends.cudnn.deterministic = False
     results["max_abs_err"]["f32_step"] = err_step
+
+    # ---- 6b. the reference's two-phase recipe ----------------------------
+    # phase 1 as a user runs it (defaults: B=128, f32, LPIPS), the handoff
+    # to phase 2, a transfer from its result, load_ldm's fallback, kernel D
+    # on the phase-1 path (VGGish compression), and the reference's own
+    # weights imported and trained from
+    rdir = tdir / "recipe"
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "--model", "autoencoder", "--data-root", str(imgs),
+              "--epochs", "2", "--out-dir", str(rdir / "ae")])
+    torch.cuda.synchronize()
+    cli_ae_s = time.perf_counter() - t0
+    rows = (rdir / "ae" / "metrics.csv").read_text().splitlines()
+    ae_rows = [dict(zip(rows[0].split(","), map(float, r.split(","))))
+               for r in rows[1:]]
+    ae_state = torch.load(rdir / "ae" / "train_state_final.pt",
+                          map_location="cpu", weights_only=True)
+    print(f"cli train --model autoencoder --epochs 2 (32 images split 25 / "
+          f"7, B=128, f32, LPIPS): {cli_ae_s:.2f} s wall, step "
+          f"{ae_state['step']}, epochs "
+          f"{[{k: round(v, 6) for k, v in r.items()} for r in ae_rows]}")
+    check(len(ae_rows) == 2 and all(np.isfinite(r[k]) for r in ae_rows
+                                    for k in ("train_loss", "val_loss")),
+          "cli train --model autoencoder: metrics.csv needs two finite "
+          "train_loss / val_loss rows")
+    check(ae_state["step"] == 2, f"the AE ran {ae_state['step']} steps")
+    for name in ("pretrained.pt", "pretrained_final.pt"):
+        check((rdir / "ae" / name).exists(), f"no {name}")
+    ae_ckpt = rdir / "ae" / "pretrained_final.pt"
+    cli.main(["train", "--model", "ldm", "--data-root", str(imgs),
+              "--pairing-file", str(pairs_csv), "--epochs", "1",
+              "--pretrained-ae", str(ae_ckpt), "--out-dir",
+              str(rdir / "ldm")])
+    handoff = torch.load(rdir / "ldm" / "ldm_final.pt", map_location="cpu",
+                         weights_only=True)
+    ae_params = load_autoencoder(ae_ckpt)["params"]
+    moved = [k for k, v in ae_params["encoder"].items()
+             if not torch.equal(handoff["params"][f"encoder.{k}"], v)]
+    print(f"handoff: ldm_final.pt (step {handoff['step']}) holds phase 1's "
+          f"encoder bit for bit: {not moved} ({len(ae_params['encoder'])} "
+          f"tensors, parameters and BatchNorm statistics)")
+    check(handoff["step"] == 2 and not moved, f"the frozen encoder moved in "
+          f"phase 2: {moved[:3]}")
+    cli.main(["transfer", "--checkpoint", str(rdir / "ldm" / "ldm_final.pt"),
+              "--content", str(content_wav), "--style",
+              str(imgs / "rock" / "000.png"), "--sampler", "fused",
+              "--steps", "50", "--overlap", "0.5", "--output",
+              str(rdir / "transfer")])
+    png = read_png_gray((rdir / "transfer.png").read_bytes())
+    sr_out, audio = wavfile.read(rdir / "transfer.wav")
+    want_len = (n_chunks - 1) * hop + 66150
+    print(f"cli transfer from the phase-2 checkpoint: PNG {png.shape}, WAV "
+          f"{audio.shape[0]} samples at {sr_out} Hz (want {want_len})")
+    check(png.shape == (128, 128 * n_chunks) and sr_out == 22050
+          and audio.shape == (want_len,) and bool(np.isfinite(audio).all()),
+          "transfer from the phase-2 checkpoint")
+    corrupt = rdir / "corrupt.pt"
+    corrupt.write_bytes(b"\x00 not a checkpoint")
+    torch.backends.cudnn.deterministic = True
+    fallback = load_ldm(full_checkpoint=str(corrupt),
+                        autoencoder_checkpoint=str(ae_ckpt),
+                        dtype=torch.float32)
+    ae_encoder = SpectrogramEncoder().to(dev).eval()
+    ae_encoder.load_state_dict(ae_params["encoder"])
+    with torch.no_grad():
+        z_fb = fallback.encode(c8)
+        z_ae = ae_encoder(c8.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.backends.cudnn.deterministic = False
+    fb_err = (z_fb - z_ae).abs().max().item()
+    print(f"load_ldm(corrupt full checkpoint, autoencoder_checkpoint=AE): "
+          f"fell back; encode of 8 images vs the AE's encoder: max abs "
+          f"difference {fb_err} (want 0: the same weights and kernels)")
+    check(fb_err == 0.0, "load_ldm's fallback does not encode as the AE")
+    recipe_launches = read_counts()
+    print(f"recipe path (phase 1, phase 2 from it, transfer): launches "
+          f"{recipe_launches}")
+    for fn in (fs.fused_ddim_sample, fm.fused_mel_unit_image,
+               nm.normalized_mse_forward, ft.fused_trunk):
+        check(recipe_launches[fn.__name__] > 0,
+              f"{fn.__name__} never ran on the recipe path")
+    results["launches"]["recipe_path"] = recipe_launches
+
+    # the reference's own weights: import, then phase 2 from them
+    ref = write_reference_weights(rdir / "reference", seed=7)
+    cli.main(["import-torch", "--encoder", str(ref["encoder"]), "--decoder",
+              str(ref["decoder"]), "--out", str(rdir / "ae_imported.pt")])
+    cli.main(["import-torch", "--vggish", str(ref["vggish"]), "--out",
+              str(rdir / "vggish_imported.pt")])
+    reset_counts()
+    cli.main(["train", "--model", "ldm", "--data-root", str(imgs),
+              "--pairing-file", str(pairs_csv), "--epochs", "1",
+              "--pretrained-ae", str(rdir / "ae_imported.pt"),
+              "--style-features", str(rdir / "vggish_imported.pt"),
+              "--out-dir", str(rdir / "ldm_imported")])
+    import_launches = read_counts()
+    imported = torch.load(rdir / "ldm_imported" / "ldm_final.pt",
+                          map_location="cpu", weights_only=True)
+    imp_params = load_autoencoder(rdir / "ae_imported.pt")["params"]
+    same = all(torch.equal(imported["params"][f"encoder.{k}"], v)
+               for k, v in imp_params["encoder"].items())
+    print(f"import-torch (reference-layout encoder.pth / decoder.pth, "
+          f"torchvggish vggish.pth), then train --model ldm --pretrained-ae "
+          f"--style-features: step {imported['step']}, the imported encoder "
+          f"kept bit for bit: {same}; launches {import_launches}")
+    check(imported["step"] == 2 and same, "phase 2 from imported weights")
+    check(import_launches["fused_trunk"] > 0, "the imported VGGish trunk "
+          "never fed kernel E")
+    results["launches"]["import_path"] = import_launches
+
+    # kernel D on the phase-1 path: VGGish compression, f32, B=128, the
+    # metric's weights the imported trunk's (AETrainer(feature_params=))
+    cfg_ae = default_config()
+    cfg_ae.train = dataclasses.replace(
+        cfg_ae.train, compression_feature_extractor="vggish")
+    vggish_imported = load_feature_checkpoint(rdir / "vggish_imported.pt")
+    check(vggish_imported["kind"] == "vggish", "import-torch --vggish wrote "
+          f"a {vggish_imported['kind']!r} checkpoint")
+    ae_v = AETrainer(cfg_ae, feature_params=vggish_imported["params"])
+    check(all(torch.equal(v.cpu(), vggish_imported["params"][k]) for k, v in
+              ae_v.feature.module.state_dict().items()),
+          "AETrainer(feature_params=) does not hold the imported trunk")
+    state_ae_v = ae_v.init_state(0)
+    reset_counts()
+    ae_v_losses = []
+    for _ in range(3):
+        state_ae_v, loss = ae_v._step(state_ae_v, c128)
+        ae_v_losses.append(loss.item())
+    ae_path_launches = read_counts()
+    d_per_step = {k: ae_path_launches[k] / 3 for k in (
+        "normalized_mse_forward", "normalized_mse_backward")}
+    print(f"AETrainer, VGGish compression (the imported trunk), B=128 "
+          f"f32, 3 steps: losses "
+          f"{ae_v_losses}; launches {ae_path_launches} (kernel D per step: "
+          f"{d_per_step})")
+    check(all(np.isfinite(ae_v_losses)), "the VGGish AE step gave a "
+          "non-finite loss")
+    check(ae_path_launches["normalized_mse_forward"] > 0
+          and ae_path_launches["normalized_mse_backward"] > 0,
+          "kernel D's forward and target-side backward must run on the "
+          "phase-1 path")
+    results["launches"]["ae_path"] = ae_path_launches
+
+    # one f32 AE step at B=8: through the kernels vs the plain versions,
+    # each under utils/profiling.py's debug_mode (it raises at a NaN or an
+    # Inf in any module's output or in the backward)
+    torch.backends.cudnn.deterministic = True
+    ae_runs = {}
+    for impl in ("auto", "plain"):
+        tr = AETrainer(cfg_ae, feature_impl=impl)
+        with debug_mode():
+            st, loss = tr._step(tr.init_state(0), c8)
+        ae_runs[impl] = (loss.item(), {k: p.grad for k, p in
+                                       st.model.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    (lk, gk_ae), (lr_, gr_ae) = ae_runs["auto"], ae_runs["plain"]
+    err_ae = {"loss": abs(lk - lr_) / abs(lr_),
+              "grad_of_max": grad_err_of_max(gk_ae, gr_ae)}
+    print(f"f32 AE step B=8 (VGGish compression, TF32 off, no NaN or Inf "
+          f"under debug_mode): kernels vs "
+          f"plain versions, loss rel {err_ae['loss']:.3g} (tol "
+          f"{TOL_STEP_LOSS}), parameter gradients max abs / max "
+          f"{err_ae['grad_of_max']:.3g} (tol {TOL_STEP_GRAD})")
+    check(err_ae["loss"] <= TOL_STEP_LOSS
+          and err_ae["grad_of_max"] <= TOL_STEP_GRAD,
+          "the f32 AE step through the kernels disagrees with the plain "
+          "versions")
+    results["max_abs_err"]["f32_ae_step"] = err_ae
 
     # ---- 7. times -------------------------------------------------------
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
@@ -1221,11 +1483,9 @@ def main() -> int:
                   "train_step_variant_ms": step_v_ms,
                   "cli_train_s": cli_train_s})
     # where one default step's device time goes
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state_t, _ = trainer_t._step(state_t, c128, s128)
-        torch.cuda.synchronize()
+    kernels_us = profiled_kernels(
+        lambda: trainer_t._step(state_t, c128, s128),
+        work / "profile" / "ldm_step")
     # E: conv3x3_wgmma_kernel (bf16), conv3x3_kernel (f32), the pools;
     # D: nm_forward_kernel, nm_backward_kernel
     groups = {"E (trunk kernels)": ("conv3x3_wgmma_kernel", "conv3x3_kernel",
@@ -1234,20 +1494,11 @@ def main() -> int:
                                      "nm_backward_kernel")}
     by_group: dict = {}
     device_total = 0.0
-    kernels_us = []
-    for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            continue      # host-side ops; their kernels are listed apart
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us <= 0:
-            continue
+    for dev_us, key in kernels_us:
         device_total += dev_us
-        kernels_us.append((dev_us, evt.key))
         name = next((gname for gname, keys in groups.items()
-                     if any(k in evt.key for k in keys)), "other")
+                     if any(k in key for k in keys)), "other")
         by_group[name] = by_group.get(name, 0.0) + dev_us
-    kernels_us.sort(reverse=True)
     print(f"profile {card} one training step B=128 bf16: device time "
           f"{device_total / 1e3:.2f} ms; by group (ms) "
           f"{ {k: round(v / 1e3, 2) for k, v in by_group.items()} }; top "
@@ -1259,6 +1510,105 @@ def main() -> int:
                                    "top_kernels_ms": [
                                        (k, v / 1e3) for v, k in
                                        kernels_us[:12]]}
+    # the AE step at B=128, f32 (TF32 off inside the step, as in phase
+    # 6b), LPIPS and VGGish compression: host clock per step, each ending
+    # in a synchronise (StepTimer, mean and p95 of 5), device time from one
+    # profiled step, the idle share (1 - device / host-clock time), peak
+    # memory
+    times["ae_step"] = {}
+    for kind_ae in ("lpips", "vggish"):
+        cfg_t = default_config()
+        cfg_t.train = dataclasses.replace(
+            cfg_t.train, compression_feature_extractor=kind_ae)
+        tr = AETrainer(cfg_t)
+        box = [tr._step(tr.init_state(0), c128)[0]]   # warm-up step
+
+        def ae_step():
+            box[0], _ = tr._step(box[0], c128)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = StepTimer()
+        for _ in range(5):
+            with timer:
+                ae_step()
+                torch.cuda.synchronize()
+        steps = timer.summary()
+        r = times["ae_step"][kind_ae] = {
+            "ms": 1e3 * steps["mean_s"], "p95_ms": 1e3 * steps["p95_s"],
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        ae_kernels = profiled_kernels(ae_step,
+                                      work / "profile" / f"ae_step_{kind_ae}")
+        r["device_ms"] = sum(us for us, _ in ae_kernels) / 1e3
+        r["idle_share"] = 1.0 - r["device_ms"] / r["ms"]
+        r["top_kernels_ms"] = [(k, us / 1e3) for us, k in ae_kernels[:6]]
+        print(f"time {card} AE step B=128 f32 ({kind_ae} compression): "
+              f"{r['ms']:.1f} ms/step (host clock, mean of 5; p95 "
+              f"{r['p95_ms']:.1f}), device "
+              f"{r['device_ms']:.2f} ms (torch.profiler), idle share "
+              f"{r['idle_share']:.3f}, peak memory {r['peak_mib']:.0f} MiB; "
+              f"top kernels (ms) "
+              f"{[(k[:50], round(v, 2)) for k, v in r['top_kernels_ms']]}")
+        del tr, box
+    # kernel D in f32 at layer 1, B=128 (the phase-1 VGGish compression
+    # term: the forward, and the backward to the target); the bound counts
+    # each map read once and the gradient written once, as the kernels do
+    p32 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
+                                 generator=g))
+    t32 = torch.relu(torch.randn(128, 128, 128, 64, device=dev,
+                                 generator=g))
+    n32 = p32[0].numel()
+    us32 = torch.full((128,), 1.0 / 128, device=dev)
+    # held against the plain versions on the same maps first: m to
+    # TOL_D_VALUE, the statistics to TOL_D_STATS of each column's max, and
+    # the target gradient to TOL_D_GRAD of its max (with upstream 1 / B
+    # every element lies below phase 3's atol, so the bar is on the max)
+    m32, st32 = nm.normalized_mse_forward(p32, t32)
+    m32r, st32r = nm.normalized_mse_forward_reference(p32, t32)
+    dt32 = nm.normalized_mse_backward(p32, t32, st32, us32, True)
+    dt32r = nm.normalized_mse_backward_reference(p32, t32, st32, us32, True)
+    err_d32 = {
+        "m": ((m32 - m32r).abs() / m32r.abs()).max().item(),
+        "stats_of_max": ((st32 - st32r).abs().max(0).values
+                         / st32r.abs().max(0).values).tolist(),
+        "dt_of_max": ((dt32 - dt32r).abs().max()
+                      / dt32r.abs().max()).item()}
+    del m32, m32r, st32r, dt32, dt32r
+    print(f"kernel D vs plain f32 [128,128,128,64] (phase 1's layer 1): m "
+          f"rel {err_d32['m']:.3g} (tol {TOL_D_VALUE}), statistics max abs "
+          f"error / column max "
+          f"{[float(f'{e:.3g}') for e in err_d32['stats_of_max']]} (tol "
+          f"{TOL_D_STATS}), target gradient max abs error / max "
+          f"{err_d32['dt_of_max']:.3g} (tol {TOL_D_GRAD})")
+    check(err_d32["m"] <= TOL_D_VALUE
+          and max(err_d32["stats_of_max"]) <= TOL_D_STATS
+          and err_d32["dt_of_max"] <= TOL_D_GRAD,
+          "kernel D (f32, B=128, layer 1) disagrees with its plain version")
+    results["max_abs_err"]["kernel_d_f32_b128"] = err_d32
+    d32 = {"fwd_ms": cuda_ms(lambda: nm.normalized_mse_forward(p32, t32),
+                             20),
+           "plain_fwd_ms": cuda_ms(
+               lambda: nm.normalized_mse_forward_reference(p32, t32), 5),
+           "bwd_ms": cuda_ms(lambda: nm.normalized_mse_backward(
+               p32, t32, st32, us32, True), 20),
+           "plain_bwd_ms": cuda_ms(lambda: nm.normalized_mse_backward_reference(
+               p32, t32, st32, us32, True), 5)}
+    fwd_bytes = nm.normalized_mse_cost(128, n32, 4)["bytes"]
+    bwd_bytes = 3 * 128 * n32 * 4 + (4 * nm.N_STATS + 4) * 128
+    d32["bound_fwd_ms"] = 1e3 * max(fwd_bytes / H100_BYTES,
+                                    10 * 128 * n32 / H100_F32_FLOPS)
+    d32["bound_bwd_ms"] = 1e3 * max(bwd_bytes / H100_BYTES,
+                                    10 * 128 * n32 / H100_F32_FLOPS)
+    d32["launches_per_step"] = d_per_step
+    d32["err_vs_plain"] = err_d32
+    print(f"time {card} kernel D [128,128,128,64] f32 (phase 1, VGGish "
+          f"compression; {d_per_step} launches per step): forward "
+          f"{d32['fwd_ms']:.3f} ms, plain {d32['plain_fwd_ms']:.3f}, bound "
+          f"{d32['bound_fwd_ms']:.4f} ms (bytes: {fwd_bytes / 1e9:.3f} GB at "
+          f"3.35 TB/s); backward to the target {d32['bwd_ms']:.3f} ms, "
+          f"plain {d32['plain_bwd_ms']:.3f}, bound {d32['bound_bwd_ms']:.4f} "
+          f"ms (bytes: {bwd_bytes / 1e9:.3f} GB)")
+    times["kernel_d_f32"] = d32
+    del p32, t32
     mem = torch.cuda.max_memory_allocated() / 2**20
     print(f"memory {card} max_memory_allocated {mem:.1f} MiB")
     times.update({"kernel_b_ms": kb_ms, "plain_b_ms": pb_ms,
@@ -1299,7 +1649,8 @@ def main() -> int:
          "launches": (train_launches["normalized_mse_forward"]
                       + train_launches["normalized_mse_backward"]),
          "max_abs_err": err_d["abs"], "ms": kd_ms, "plain_ms": pd_ms,
-         "bound_ms": bound_d_ms, "bound_by": bound_d_by, "library_ms": None},
+         "bound_ms": bound_d_ms, "bound_by": bound_d_by, "library_ms": None,
+         "phase1_f32": d32},
         {"name": "fused_vggish_distance", "route": "cuda",
          "source": "music_style_transfer_ldm_tpu_torch/csrc/fused_trunk.cu",
          "replaces": "music_style_transfer_ldm_tpu/ops/pallas/"

@@ -7,13 +7,22 @@
   python -m music_style_transfer_ldm_tpu_torch.cli serve --checkpoint ckpt.pt
   python -m music_style_transfer_ldm_tpu_torch.cli generate-pairings \\
       --root images/ --output pairs.csv
+  python -m music_style_transfer_ldm_tpu_torch.cli train --model \\
+      autoencoder --data-root images/ --epochs N --out-dir runs/ae
   python -m music_style_transfer_ldm_tpu_torch.cli train --model ldm \\
-      --data-root images/ --pairing-file pairs.csv --epochs N --out-dir runs/
+      --data-root images/ --pairing-file pairs.csv \\
+      --pretrained-ae runs/ae/pretrained.pt --epochs N --out-dir runs/ldm
+  python -m music_style_transfer_ldm_tpu_torch.cli import-torch \\
+      --encoder encoder.pth --decoder decoder.pth --out ae.pt
 
-Checkpoints are the port's own format (``training/checkpoint.py``);
-``train`` writes ``ldm_final.pt``, which ``transfer`` and ``generate``
-read.  Everything runs on the card; ``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU instead (the tests use it).
+Checkpoints are the port's own format (``training/checkpoint.py``).
+``train --model autoencoder`` writes ``pretrained.pt`` (the best
+validation loss), which ``train --model ldm --pretrained-ae`` loads and
+freezes; ``train --model ldm`` writes ``ldm_final.pt``, which
+``transfer`` and ``generate`` read.  ``import-torch`` converts the
+reference's own ``.pth`` weights into these formats.  Everything runs
+on the card; ``--device cpu`` runs the plain PyTorch versions of the
+kernels on the CPU instead (the tests use it).
 """
 
 from __future__ import annotations
@@ -39,9 +48,23 @@ from music_style_transfer_ldm_tpu_torch.data.build_dataset import chunk_audio
 from music_style_transfer_ldm_tpu_torch.datasets.folder import (
     SpectrogramPairDataset, generate_pairings, load_image_unit,
 )
-from music_style_transfer_ldm_tpu_torch.datasets.loader import BatchLoader
+from music_style_transfer_ldm_tpu_torch.datasets.loader import (
+    BatchLoader, prepare_dataset,
+)
+from music_style_transfer_ldm_tpu_torch.interop.torch_weights import (
+    convert_autoencoder_state_dicts, convert_ldm_state_dict,
+)
+from music_style_transfer_ldm_tpu_torch.losses.lpips import (
+    LPIPS, convert_torch_lpips_state_dict,
+)
+from music_style_transfer_ldm_tpu_torch.losses.vggish import (
+    VGGishFeatures, convert_torchvggish_state_dict,
+)
+from music_style_transfer_ldm_tpu_torch.models.autoencoder import (
+    SpectrogramDecoder, SpectrogramEncoder,
+)
 from music_style_transfer_ldm_tpu_torch.models.ldm import (
-    checkpoint_distill_meta, content_style_transfer, load_ldm,
+    build_ldm, checkpoint_distill_meta, content_style_transfer, load_ldm,
     match_moments, style_ddim_sample,
 )
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
@@ -51,6 +74,10 @@ from music_style_transfer_ldm_tpu_torch.serving.engine import (
     EngineConfig, InferenceEngine,
 )
 from music_style_transfer_ldm_tpu_torch.serving.server import serve
+from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
+from music_style_transfer_ldm_tpu_torch.training.train_autoencoder import (
+    AETrainer,
+)
 from music_style_transfer_ldm_tpu_torch.training.train_ldm import LDMTrainer
 from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
 from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
@@ -339,19 +366,30 @@ def cmd_generate_pairings(args) -> int:
     return 0
 
 
+def _load_feature_params(path, expected_kind: str):
+    """The weights of a feature checkpoint (``import-torch --vggish /
+    --lpips``) for a trainer's metric; None passes through (a random
+    trunk)."""
+    if not path:
+        return None
+    payload = ckpt_lib.load_feature_checkpoint(path)
+    kind = payload["kind"]
+    if kind != expected_kind:
+        raise SystemExit(
+            f"feature checkpoint {path} holds {kind!r} weights but the "
+            f"loss expects {expected_kind!r} (check --style-features vs "
+            "--compression-features / train.compression_feature_extractor)")
+    print(f"transplanted {kind} feature weights loaded from {path}",
+          flush=True)
+    return payload["params"]
+
+
 def cmd_train(args) -> int:
-    """LDM training on a pairings CSV over an image folder; checkpoints
-    under --out-dir (``ldm_final.pt`` at the end)."""
-    if args.model != "ldm":
-        raise SystemExit("train --model autoencoder is not ported yet; "
-                         "the port trains the LDM (--model ldm)")
-    for flag, value in (("--pretrained-ae", args.pretrained_ae),
-                        ("--style-features", args.style_features),
-                        ("--compression-features",
-                         args.compression_features)):
-        if value:
-            raise SystemExit(f"train {flag} is not ported yet (it reads "
-                             "the JAX package's orbax checkpoints)")
+    """Phase 1 (``--model autoencoder``: the image folder split 80/20,
+    ``pretrained.pt`` at the best validation loss) or phase 2 (``--model
+    ldm``: a pairings CSV over the image folder, optionally from phase 1's
+    ``--pretrained-ae``; ``ldm_final.pt`` at the end).  Checkpoints go
+    under --out-dir."""
     cfg = default_config()
     overrides = {"num_epochs": args.epochs, "learning_rate": args.lr,
                  "style_dropout": args.style_dropout or None,
@@ -359,14 +397,90 @@ def cmd_train(args) -> int:
     cfg.train = dataclasses.replace(cfg.train, **{
         k: v for k, v in overrides.items() if v is not None})
     root = args.data_root or cfg.data.processed_dir
+    if args.model == "autoencoder":
+        ldm_only = [flag for flag, value in (
+            ("--pretrained-ae", args.pretrained_ae),
+            ("--pairing-file", args.pairing_file),
+            ("--style-features", args.style_features),
+            ("--compression-features", args.compression_features),
+            ("--style-dropout", args.style_dropout),
+            ("--ema-decay", args.ema_decay)) if value]
+        if ldm_only:
+            raise SystemExit(f"{', '.join(ldm_only)}: LDM only (train "
+                             "--model ldm)")
+        train_loader, val_loader = prepare_dataset(cfg, root)
+        trainer = AETrainer(cfg, device=args.device)
+        trainer.train(train_loader, val_loader, out_dir=args.out_dir,
+                      resume_from=args.resume_from)
+        print(f"autoencoder: {len(train_loader)} train / {len(val_loader)} "
+              f"validation batches per epoch; best weights in "
+              f"{Path(args.out_dir) / 'pretrained.pt'} (for train --model "
+              "ldm --pretrained-ae)", flush=True)
+        return 0
     pairs = SpectrogramPairDataset(root, args.pairing_file
                                    or cfg.data.pairing_file)
     loader = BatchLoader(pairs, cfg.train.batch_size, shuffle=True,
                          seed=cfg.train.seed)
-    trainer = LDMTrainer(cfg, device=args.device)
-    trainer.train(loader, out_dir=args.out_dir, resume_from=args.resume_from)
+    trainer = LDMTrainer(
+        cfg, device=args.device,
+        style_feature_params=_load_feature_params(args.style_features,
+                                                  "vggish"),
+        compression_feature_params=_load_feature_params(
+            args.compression_features,
+            cfg.train.compression_feature_extractor))
+    pre = (ckpt_lib.load_autoencoder(args.pretrained_ae)
+           if args.pretrained_ae else None)
+    trainer.train(loader, pretrained_autoencoder=pre, out_dir=args.out_dir,
+                  resume_from=args.resume_from)
     print(f"trained {len(loader)} steps per epoch; checkpoints under "
           f"{args.out_dir}", flush=True)
+    return 0
+
+
+def _load_state_dict(path) -> dict:
+    """A PyTorch state dict file (or a {'state_dict': ...} wrapper, as
+    torch.hub modules save them), tensors only."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.get("state_dict", sd) if isinstance(sd, dict) else sd
+
+
+def cmd_import_torch(args) -> int:
+    """Convert the reference's PyTorch weights into the port's formats
+    (``interop/torch_weights.py``): ``--ldm`` a full checkpoint for
+    transfer / generate / serve, ``--encoder --decoder`` an autoencoder
+    checkpoint for ``train --pretrained-ae`` and ``load_ldm(
+    autoencoder_checkpoint=)``, ``--vggish`` / ``--lpips`` a feature
+    checkpoint for ``train --style-features`` / ``--compression-features``
+    (torchvggish's ``features`` and ``lpips.LPIPS(net='alex')`` layouts).
+    Each is loaded into its module strictly before it is written."""
+    out = Path(args.out)
+    if args.vggish or args.lpips:
+        kind = "vggish" if args.vggish else "lpips"
+        convert = (convert_torchvggish_state_dict if args.vggish
+                   else convert_torch_lpips_state_dict)
+        params = convert(_load_state_dict(args.vggish or args.lpips))
+        module = VGGishFeatures() if args.vggish else LPIPS()
+        module.load_state_dict(params)
+        ckpt_lib.save_feature_checkpoint(out, kind, module.state_dict())
+    elif args.ldm:
+        model = build_ldm(device="cpu")
+        model.load_state_dict(convert_ldm_state_dict(
+            _load_state_dict(args.ldm)))
+        ckpt_lib.save_checkpoint(out, model)
+    elif args.encoder and args.decoder:
+        cm = default_config().model
+        params = convert_autoencoder_state_dicts(
+            _load_state_dict(args.encoder), _load_state_dict(args.decoder))
+        encoder = SpectrogramEncoder(cm.latent_dim)
+        decoder = SpectrogramDecoder(cm.latent_dim)
+        encoder.load_state_dict(params["encoder"])
+        decoder.load_state_dict(params["decoder"])
+        ckpt_lib.save_autoencoder(out, encoder, decoder)
+    else:
+        print("provide --ldm, --vggish, --lpips, or --encoder and "
+              "--decoder", file=sys.stderr)
+        return 2
+    print(f"converted checkpoint written to {out}")
     return 0
 
 
@@ -473,27 +587,32 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=42)
     g.set_defaults(fn=cmd_generate_pairings)
 
-    t = sub.add_parser("train", help="train the ldm")
-    t.add_argument("--model", required=True, choices=["autoencoder", "ldm"],
-                   help="'ldm' (the autoencoder phase is not ported yet)")
+    t = sub.add_parser("train", help="train the autoencoder (phase 1) or "
+                                     "the ldm (phase 2)")
+    t.add_argument("--model", required=True, choices=["autoencoder", "ldm"])
     t.add_argument("--data-root")
-    t.add_argument("--pairing-file")
+    t.add_argument("--pairing-file", help="LDM only: the pairings CSV")
     t.add_argument("--pretrained-ae",
-                   help="autoencoder checkpoint to load and freeze (not "
-                        "ported yet)")
+                   help="LDM only: autoencoder checkpoint to load and freeze "
+                        "(phase 1's pretrained.pt, or import-torch "
+                        "--encoder --decoder)")
     t.add_argument("--epochs", type=int)
     t.add_argument("--lr", type=float, default=None,
                    help="override the initial learning rate")
     t.add_argument("--style-dropout", type=float, default=0.0,
-                   help="per-sample probability of zeroing the style "
-                        "embedding (classifier-free-guidance training)")
+                   help="LDM only: per-sample probability of zeroing the "
+                        "style embedding (classifier-free-guidance training)")
     t.add_argument("--ema-decay", type=float, default=0.0,
-                   help="track an EMA of the weights (0.999 typical; 0 = "
-                        "off); inference then prefers it")
+                   help="LDM only: track an EMA of the weights (0.999 "
+                        "typical; 0 = off); inference then prefers it")
     t.add_argument("--style-features",
-                   help="transplanted VGGish weights (not ported yet)")
+                   help="LDM only: transplanted VGGish feature checkpoint "
+                        "(import-torch --vggish) for the style loss; "
+                        "default a fixed-seed random trunk")
     t.add_argument("--compression-features",
-                   help="transplanted LPIPS weights (not ported yet)")
+                   help="LDM only: transplanted LPIPS feature checkpoint "
+                        "(import-torch --lpips) for the compression "
+                        "perceptual term")
     t.add_argument("--out-dir", default="runs/train")
     t.add_argument("--resume-from",
                    help="train-state checkpoint to resume from")
@@ -501,6 +620,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cpu' runs the kernels' plain "
                         "PyTorch versions in f32 (tests)")
     t.set_defaults(fn=cmd_train)
+
+    it = sub.add_parser("import-torch",
+                        help="convert the reference's .pth weights")
+    it.add_argument("--ldm", help="full ldm_<epoch>.pth state dict")
+    it.add_argument("--encoder", help="encoder.pth")
+    it.add_argument("--decoder", help="decoder.pth")
+    it.add_argument("--vggish",
+                    help="torchvggish .pth -> style-feature checkpoint "
+                         "(train --style-features)")
+    it.add_argument("--lpips",
+                    help="lpips(net='alex') .pth -> compression-feature "
+                         "checkpoint (train --compression-features)")
+    it.add_argument("--out", required=True)
+    it.set_defaults(fn=cmd_import_torch)
     return p
 
 

@@ -2,6 +2,8 @@
 
 A thread pool decodes the next batch's PNGs while the card computes the
 current step.  One process feeds one card (no multi-host slicing).
+``prepare_dataset`` gives the autoencoder phase its train and test
+loaders.
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ from queue import Queue
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from music_style_transfer_ldm_tpu_torch.datasets.folder import (
+    SpectrogramDataset,
+)
 
 
 def train_test_split(n: int, train_fraction: float = 0.8,
@@ -101,3 +107,19 @@ class BatchLoader:
                 raise item
             yield item
         t.join()
+
+
+def prepare_dataset(config, root: str | None = None):
+    """(train_loader, test_loader) for the autoencoder phase: the images
+    under ``root`` (default ``config.data.processed_dir``) split
+    ``train_test_split(n, config.train.train_split, config.train.seed)``,
+    the train part shuffled every epoch, the test part in order."""
+    root = root or config.data.processed_dir
+    ds = SpectrogramDataset(root, image_size=config.model.image_size)
+    tr_idx, te_idx = train_test_split(len(ds), config.train.train_split,
+                                      seed=config.train.seed)
+    train_loader = BatchLoader(ds, config.train.batch_size, indices=tr_idx,
+                               shuffle=True, seed=config.train.seed)
+    test_loader = BatchLoader(ds, config.train.batch_size, indices=te_idx,
+                              shuffle=False)
+    return train_loader, test_loader

@@ -1,11 +1,13 @@
-"""Feature-metric factory used by the trainer.
+"""Feature-metric factory used by the trainers.
 
 The compression loss's perceptual term uses the configured extractor
 (default ``lpips``) and its gradient flows.  The style loss always uses
 VGGish; with ``TrainConfig.style_loss_stop_gradient`` (the default) the
-trainer computes it without a gradient.  Both metrics are fixed-seed
-random trunks; transplanted weights (``losses/vggish.py``'s and
-``losses/lpips.py``'s converters) are not wired to training yet.
+trainer computes it without a gradient.  A metric is a fixed-seed random
+trunk unless it is given transplanted weights: a state dict of its
+module, as ``losses/vggish.py``'s and ``losses/lpips.py``'s converters
+make it from the reference's PyTorch weights (``cli import-torch
+--vggish|--lpips``; ``train --style-features|--compression-features``).
 """
 
 from __future__ import annotations
@@ -39,10 +41,11 @@ class FeatureMetric:
 
 
 def build_feature_metric(kind: str, dtype: torch.dtype = torch.float32,
-                         seed: int = 0, device="cuda",
-                         impl: str = "auto") -> FeatureMetric:
-    """A frozen metric whose random init comes from ``seed``, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+                         seed: int = 0, device="cuda", impl: str = "auto",
+                         params: Optional[dict] = None) -> FeatureMetric:
+    """A frozen metric on ``device`` (the card unless the caller asks for
+    the CPU): its weights are ``params`` (a state dict of the module,
+    loaded strictly) when given, else a random init from ``seed``."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -52,4 +55,6 @@ def build_feature_metric(kind: str, dtype: torch.dtype = torch.float32,
             module = VGGishFeatures(dtype=dtype)
         else:
             raise ValueError(f"unknown feature extractor {kind!r}")
+    if params is not None:
+        module.load_state_dict(params)
     return FeatureMetric(kind, module.to(device).eval(), impl)

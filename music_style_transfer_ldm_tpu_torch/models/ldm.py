@@ -8,12 +8,11 @@ noise it to t = N-1 with per-item noise, walk the grid with DDIM or
 DPM-Solver++(2M) conditioned on the style pyramid, decode.
 ``style_ddim_sample`` generates from noise instead.  ``load_ldm`` builds
 the model from a checkpoint of the port (``training/checkpoint.py``),
-the ones training writes included.
+the ones training writes included, or from phase 1's autoencoder.
 """
 
 from __future__ import annotations
 
-import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,7 +34,6 @@ from music_style_transfer_ldm_tpu_torch.models.style_encoder import (
     StyleEncoder,
 )
 from music_style_transfer_ldm_tpu_torch.models.unet import UNet
-from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 
@@ -376,34 +374,62 @@ def checkpoint_distill_meta(full_checkpoint) -> Optional[dict]:
     carries ({"steps", "t_max", "stages", "guidance"}), or None for a
     stock checkpoint or an unreadable path (advisory callers only; load
     errors surface through ``load_ldm``)."""
+    from music_style_transfer_ldm_tpu_torch.training import (
+        checkpoint as ckpt_lib,   # imported here: training imports this
+    )
     try:
         payload = ckpt_lib.load_checkpoint(full_checkpoint)
-    except (OSError, ValueError, RuntimeError, pickle.UnpicklingError):
+    except ckpt_lib.LOAD_ERRORS:
         return None
     meta = payload.get("distill")
     return dict(meta) if isinstance(meta, dict) else None
 
 
 def load_ldm(config: Optional[Config] = None,
-             full_checkpoint: Optional[str] = None, use_ema: bool = True,
-             dtype=torch.bfloat16, device="cuda") -> LDM:
-    """An LDM in eval mode on ``device``, from a checkpoint of the port.
+             full_checkpoint: Optional[str] = None,
+             autoencoder_checkpoint: Optional[str] = None,
+             use_ema: bool = True, dtype=torch.bfloat16,
+             device="cuda") -> LDM:
+    """An LDM in eval mode on ``device``, from checkpoints of the port.
 
-    A checkpoint that carries EMA weights gives those (the sampling
-    convention) unless use_ema=False.  Without a checkpoint the weights
-    are the seed-0 initialisation."""
+    A full checkpoint that carries EMA weights gives those (the sampling
+    convention) unless use_ema=False.  ``autoencoder_checkpoint`` (phase
+    1's ``pretrained.pt``) gives the encoder and decoder, the rest keeping
+    the seed-0 initialisation.  With both, the full checkpoint is tried
+    first; if it cannot be read or does not fit, the failure is printed
+    and the model falls back to the autoencoder's weights (the JAX
+    package's fallback).  A full checkpoint that fails with no
+    autoencoder checkpoint raises.  Without a checkpoint the weights are
+    the seed-0 initialisation."""
+    from music_style_transfer_ldm_tpu_torch.training import (
+        checkpoint as ckpt_lib,   # imported here: training imports this
+    )
     device = resolve_device(device)
-    model = _new_ldm(config or default_config(), seed=0)
+    config = config or default_config()
+    model = _new_ldm(config, seed=0)
     if full_checkpoint is not None:
-        payload = ckpt_lib.load_checkpoint(full_checkpoint)
-        model.load_state_dict(payload["params"])
-        if use_ema and payload.get("ema_params") is not None:
-            # EMA covers the parameters; BatchNorm statistics stay.
-            _, unexpected = model.load_state_dict(
-                payload["ema_params"], strict=False)
-            if unexpected:
-                raise ValueError(f"ema_params has unknown keys "
-                                 f"{unexpected[:3]}")
-            print("load_ldm: using EMA weights (pass use_ema=False for "
-                  "raw)", flush=True)
+        try:
+            payload = ckpt_lib.load_checkpoint(full_checkpoint)
+            model.load_state_dict(payload["params"])
+            if use_ema and payload.get("ema_params") is not None:
+                # EMA covers the parameters; BatchNorm statistics stay.
+                _, unexpected = model.load_state_dict(
+                    payload["ema_params"], strict=False)
+                if unexpected:
+                    raise ValueError(f"ema_params has unknown keys "
+                                     f"{unexpected[:3]}")
+                print("load_ldm: using EMA weights (pass use_ema=False for "
+                      "raw)", flush=True)
+        except ckpt_lib.LOAD_ERRORS as e:
+            if autoencoder_checkpoint is None:
+                raise
+            print(f"Could not load full LDM checkpoint: {e}", flush=True)
+            print("Falling back to encoder/decoder weights", flush=True)
+            model = _new_ldm(config, seed=0)   # undo a partial load
+        else:
+            return model.to(device=device, dtype=dtype).eval()
+    if autoencoder_checkpoint is not None:
+        ae = ckpt_lib.load_autoencoder(autoencoder_checkpoint)["params"]
+        model.encoder.load_state_dict(ae["encoder"])
+        model.decoder.load_state_dict(ae["decoder"])
     return model.to(device=device, dtype=dtype).eval()

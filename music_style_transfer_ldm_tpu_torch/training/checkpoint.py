@@ -6,14 +6,24 @@ One ``torch.save`` file holding
      "distill": dict | None, "format_version": 2}
 
 and, written by training (``save_train_state``), also ``opt_state`` (the
-optimizer's state dict) and ``step``, so a run resumes where it stopped.
-
+optimizer's state dict) and ``step``, so a run resumes where it stopped;
 with the keys of the JAX package's checkpoint payload: ``params`` is the
-LDM's whole state dict (BatchNorm statistics included), ``ema_params``
+model's whole state dict (BatchNorm statistics included; the LDM's, or
+the autoencoder trainer's encoder and decoder), ``ema_params``
 an exponential moving average of its parameters when training kept one
 (inference prefers it), and ``distill`` a progressively distilled
 student's grid ({"steps", "t_max", "stages", "guidance"}).  Format 2 is
 the JAX package's current one (transpose convs in PyTorch's geometry).
+
+Two more kinds of file, each with ``format_version``:
+
+* the autoencoder checkpoint (``save_autoencoder``; phase 1's
+  ``pretrained.pt``, phase 2's ``--pretrained-ae``):
+  ``{"params": {"encoder": state_dict, "decoder": state_dict}}``;
+* the feature checkpoint (``save_feature_checkpoint``; ``import-torch
+  --vggish|--lpips``, read by ``train --style-features|
+  --compression-features``): ``{"kind": "vggish"|"lpips", "params":
+  state_dict}`` of ``losses/vggish.py``'s or ``losses/lpips.py``'s module.
 
 The JAX package's orbax checkpoints are not readable here: that needs
 JAX, and waits for an offline converter.
@@ -22,6 +32,7 @@ JAX, and waits for an offline converter.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from pathlib import Path
 from typing import Optional
 
@@ -32,6 +43,9 @@ from music_style_transfer_ldm_tpu_torch.training.state import (
 )
 
 FORMAT_VERSION = 2
+# What reading a missing, truncated or foreign file can raise.
+LOAD_ERRORS = (OSError, EOFError, ValueError, RuntimeError,
+               pickle.UnpicklingError)
 
 
 def _cpu_state(state: dict) -> dict:
@@ -63,19 +77,65 @@ def save_checkpoint(path: str | Path, model, ema_params: Optional[dict] = None,
                 "format_version": FORMAT_VERSION}, path)
 
 
-def load_checkpoint(path: str | Path) -> dict:
-    """Read a checkpoint written by ``save_checkpoint`` (tensors only, no
-    pickled code)."""
+def _load(path: str | Path, key: str) -> dict:
+    """A payload of the port (tensors only, no pickled code) that holds
+    ``key``, in the current format."""
     payload = torch.load(Path(path), map_location="cpu", weights_only=True)
-    if not isinstance(payload, dict) or "params" not in payload:
+    if not isinstance(payload, dict) or key not in payload:
         raise ValueError(f"{path} is not a checkpoint of the port (no "
-                         "'params'); orbax checkpoints of the JAX package "
+                         f"{key!r}); orbax checkpoints of the JAX package "
                          "are not readable yet")
+    _check_version(payload, path)
+    return payload
+
+
+def _check_version(payload: dict, path) -> None:
     version = int(payload.get("format_version", 0))
     if version != FORMAT_VERSION:
         raise ValueError(f"{path}: checkpoint format {version}, expected "
                          f"{FORMAT_VERSION}")
+
+
+def load_checkpoint(path: str | Path) -> dict:
+    """Read a checkpoint written by ``save_checkpoint`` or
+    ``save_train_state``."""
+    return _load(path, "params")
+
+
+def save_autoencoder(path: str | Path, encoder, decoder) -> None:
+    """Write the encoder's and decoder's state (parameters and BatchNorm
+    statistics, float32, on the CPU): the inputs of the LDM phase."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"params": {"encoder": _cpu_state(encoder.state_dict()),
+                           "decoder": _cpu_state(decoder.state_dict())},
+                "format_version": FORMAT_VERSION}, path)
+
+
+def load_autoencoder(path: str | Path) -> dict:
+    """-> {"params": {"encoder": state_dict, "decoder": state_dict},
+    "format_version": 2}, as ``save_autoencoder`` wrote it."""
+    payload = _load(path, "params")
+    if set(payload["params"]) != {"encoder", "decoder"}:
+        raise ValueError(f"{path} is not an autoencoder checkpoint (its "
+                         "params are not {'encoder', 'decoder'})")
     return payload
+
+
+def save_feature_checkpoint(path: str | Path, kind: str,
+                            params: dict) -> None:
+    """Write a feature metric's weights (a state dict of ``VGGishFeatures``
+    or ``LPIPS``) under its kind."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"kind": kind, "params": _cpu_state(params),
+                "format_version": FORMAT_VERSION}, path)
+
+
+def load_feature_checkpoint(path: str | Path) -> dict:
+    """-> {"kind", "params", "format_version"}, as
+    ``save_feature_checkpoint`` wrote it."""
+    return _load(path, "kind")
 
 
 def save_train_state(path: str | Path, state: TrainState) -> None:

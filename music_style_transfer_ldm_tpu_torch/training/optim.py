@@ -1,12 +1,18 @@
-"""The LDM phase's optimizer and its plateau learning-rate control.
+"""The two phases' optimizers and their plateau learning-rate control.
 
-Adam (lr 5e-4, betas 0.9/0.999, eps 1e-8: optax ``adam``'s update and
-bias correction) over every parameter outside the encoder; the encoder
-is frozen (``requires_grad=False``) and is not given to the optimizer,
-which leaves it exactly where optax's ``set_to_zero`` branch does.
+* ``adamw`` (the autoencoder phase): ``torch.optim.AdamW`` with betas
+  0.9/0.999, eps 1e-8 and weight decay 0.01.  optax's ``adamw`` steps
+  p - lr (m_hat / (sqrt(v_hat) + eps) + wd p); torch's decays first,
+  p (1 - lr wd), then subtracts lr m_hat / (sqrt(v_hat) + eps) with the
+  same p, which is the same update (held to optax by the tests).
+* ``adam`` (the LDM phase): lr 5e-4, betas 0.9/0.999, eps 1e-8 (optax
+  ``adam``'s update and bias correction) over every parameter outside
+  the encoder; the encoder is frozen (``requires_grad=False``) and is
+  not given to the optimizer, which leaves it exactly where optax's
+  ``set_to_zero`` branch does.
+
 ``PlateauState`` is ReduceLROnPlateau (mode 'min') on the host; a new
-rate goes into the optimizer's param groups between epochs.  AdamW for
-the autoencoder phase is not ported yet.
+rate goes into the optimizer's param groups between epochs.
 """
 
 from __future__ import annotations
@@ -58,13 +64,18 @@ def freeze_encoder(model: nn.Module) -> List[nn.Parameter]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def make_optimizer(kind: str, params, learning_rate: float = 5e-4
-                   ) -> torch.optim.Optimizer:
-    """'adam' (the LDM phase)."""
-    if kind != "adam":
-        raise ValueError(f"optimizer {kind!r} is not ported yet (adam only)")
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8)
+def make_optimizer(kind: str, params, learning_rate: float = 5e-4,
+                   weight_decay: float = 0.01) -> torch.optim.Optimizer:
+    """'adamw' (the autoencoder phase; ``weight_decay`` applies to it
+    only) or 'adam' (the LDM phase)."""
+    if kind == "adamw":
+        return torch.optim.AdamW(params, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay)
+    if kind == "adam":
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8)
+    raise ValueError(f"unknown optimizer {kind!r}")
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

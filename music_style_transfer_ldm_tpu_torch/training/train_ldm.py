@@ -1,6 +1,9 @@
 """Latent diffusion training (the LDM phase).
 
-One step: draw t ~ U{0..T-1}, the q-sample noise and the style-dropout
+The reference recipe starts it from phase 1's autoencoder
+(``training/train_autoencoder.py``): ``init_state(pretrained_autoencoder=)``
+copies its encoder and decoder in, and the encoder stays frozen.  One
+step: draw t ~ U{0..T-1}, the q-sample noise and the style-dropout
 mask (each may be given instead) from a generator re-seeded from
 (``TrainConfig.seed``, step), so a run resumed from a checkpoint draws
 what the uninterrupted run drew; then the training forward with the encoder
@@ -48,6 +51,7 @@ from music_style_transfer_ldm_tpu_torch.training.state import (
     prefetch_to_device, to_device,
 )
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
+from music_style_transfer_ldm_tpu_torch.utils.profiling import StallWatchdog
 
 _MASK64 = (1 << 64) - 1
 
@@ -72,10 +76,15 @@ class LDMTrainer:
 
     ``feature_impl`` is the VGGish implementation of both perceptual
     metrics (``auto``: the kernels on the card; ``plain`` forces the plain
-    versions, for comparisons)."""
+    versions, for comparisons).  ``compression_feature_params`` and
+    ``style_feature_params`` are transplanted weights of the two metrics
+    (state dicts of their modules); without them each is a random trunk
+    from its seed."""
 
     def __init__(self, config, perceptual: bool = True, device="cuda",
-                 feature_impl: str = "auto"):
+                 feature_impl: str = "auto",
+                 compression_feature_params: Optional[dict] = None,
+                 style_feature_params: Optional[dict] = None):
         self.config = config
         self.device = resolve_device(device)
         ct = config.train
@@ -84,11 +93,12 @@ class LDMTrainer:
                               else torch.float32)
         self.compression_feature = (build_feature_metric(
             ct.compression_feature_extractor, self.compute_dtype,
-            seed=ct.seed + 2, device=self.device, impl=feature_impl)
-            if perceptual else None)
+            seed=ct.seed + 2, device=self.device, impl=feature_impl,
+            params=compression_feature_params) if perceptual else None)
         self.style_feature = (build_feature_metric(
             "vggish", self.compute_dtype, seed=ct.seed + 3,
-            device=self.device, impl=feature_impl) if perceptual else None)
+            device=self.device, impl=feature_impl,
+            params=style_feature_params) if perceptual else None)
         self.style_loss_stop_gradient = ct.style_loss_stop_gradient
         self.style_loss_weight = ct.style_loss_weight
         self.perceptual_weight = ct.perceptual_weight
@@ -101,11 +111,23 @@ class LDMTrainer:
 
     # ---------------- state ------------------------------------------------
 
-    def init_state(self, seed: int = 0) -> TrainState:
+    def init_state(self, seed: int = 0,
+                   pretrained_autoencoder: Optional[dict] = None
+                   ) -> TrainState:
         """A fresh model (weights from ``seed``) with the encoder frozen,
-        its optimizer and, when EMA is on, the EMA seeded from the init."""
+        its optimizer and, when EMA is on, the EMA seeded from the init.
+
+        ``pretrained_autoencoder`` (``checkpoint.load_autoencoder``'s
+        payload, phase 1's result) replaces the encoder's and decoder's
+        parameters and BatchNorm statistics before the encoder is frozen
+        and before the optimizer and the EMA are made, so the EMA starts
+        from the transplanted weights."""
         model = build_ldm(self.config, dtype=torch.float32,
                           device=self.device, seed=seed)
+        if pretrained_autoencoder is not None:
+            ae = pretrained_autoencoder["params"]
+            model.encoder.load_state_dict(ae["encoder"])
+            model.decoder.load_state_dict(ae["decoder"])
         params = freeze_encoder(model)
         optimizer = make_optimizer("adam", params,
                                    self.config.train.learning_rate)
@@ -208,18 +230,20 @@ class LDMTrainer:
 
     def train(self, train_loader, num_epochs: Optional[int] = None,
               state: Optional[TrainState] = None,
+              pretrained_autoencoder: Optional[dict] = None,
               out_dir: str | Path = "runs/ldm",
               resume_from: Optional[str | Path] = None) -> TrainState:
         """The loop: plateau learning rate on each epoch's train loss,
         ``ldm_<epoch>.pt`` every ``ckpt_every_epochs`` epochs (and loss
         plots where matplotlib exists), ``ldm_final.pt`` at the end.
-        ``resume_from`` continues from a train-state checkpoint, counting
-        epochs from its step."""
+        ``pretrained_autoencoder`` goes to ``init_state`` when no state is
+        given.  ``resume_from`` continues from a train-state checkpoint,
+        counting epochs from its step."""
         cfg = self.config.train
         num_epochs = num_epochs or cfg.num_epochs
         out_dir = Path(out_dir)
         if state is None:
-            state = self.init_state(cfg.seed)
+            state = self.init_state(cfg.seed, pretrained_autoencoder)
         start_epoch = 0
         if resume_from is not None:
             state = ckpt_lib.restore_train_state(resume_from, state)
@@ -229,7 +253,9 @@ class LDMTrainer:
                               truncate_from_epoch=start_epoch)
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
-            state, avgs = self.train_epoch(state, train_loader)
+            with StallWatchdog(timeout_s=600, context=f"LDM epoch {epoch} "
+                               f"(checkpoints under {out_dir})"):
+                state, avgs = self.train_epoch(state, train_loader)
             self.plateau = plateau_update(self.plateau, avgs["total_loss"])
             set_learning_rate(state.optimizer, self.plateau.lr)
             logger.log(epoch=epoch, lr=self.plateau.lr,

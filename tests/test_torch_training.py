@@ -325,8 +325,8 @@ def test_plateau_and_small_helpers():
     u8 = torch.tensor([[0, 255]], dtype=torch.uint8)
     np.testing.assert_array_equal(as_unit_images(u8).numpy(), [[0.0, 1.0]])
     assert count_params(torch.nn.Linear(7, 3)) == 24
-    with pytest.raises(ValueError, match="not ported"):
-        make_optimizer("adamw", [torch.nn.Parameter(torch.zeros(1))])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer("sgd", [torch.nn.Parameter(torch.zeros(1))])
 
 
 # ---------------- trainer, checkpoints, data, CLI ----------------------------
@@ -528,8 +528,10 @@ def test_cli_trains_and_transfers_from_the_checkpoint(tmp_path):
     assert cli.main(args + ["--epochs", "2", "--resume-from",
                             str(final)]) == 0
     assert torch.load(final, weights_only=True)["step"] == 2
-    for extra in (["--pretrained-ae", "ae"], ["--style-features", "v"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    for extra in (["--pretrained-ae", str(tmp_path / "ae")],
+                  ["--style-features", str(tmp_path / "v")]):
+        with pytest.raises(FileNotFoundError):
             cli.main(args + extra)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["train", "--model", "autoencoder", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        cli.main(["train", "--model", "autoencoder", "--data-root",
+                  str(tmp_path / "none"), "--device", "cpu"])
