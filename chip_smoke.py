@@ -48,6 +48,25 @@ Phases, in order; any failure exits non-zero:
      backward), and one f32 AE step at B=8 through the kernels against
      the plain versions, under ``debug_mode``; the launch counts read
      around each;
+  6c. the distillation and evaluation path: ``cli distill --stages
+     96,48,24,12,6 --steps-per-stage 4 --inflight-every 2`` at the
+     defaults (B=128, bf16, t_max 100) from phase 6's checkpoint (five
+     students, their metadata, the frozen parts bit for bit, the UNet
+     moved, finite losses, the closing line's grid) and a guided cascade
+     ``--stages 6,3 --guidance 2.0`` that collapses to one step; the
+     3-step student served on its grid by ``cli transfer`` (fused: no
+     warning, one kernel A launch per group of chunks; ``--sample-steps
+     7`` warns; ``--sampler ddim``: three kernel B launches) and by the
+     HTTP server, whose engine adopts the grid (one A launch per
+     request); the evaluation block on B=8 seeded pairs (the teacher's
+     99-step transfer, the teacher and the student on the 4-point grid,
+     pixel MSE / PSNR printed; ``independent_transfer_metrics`` on the
+     card: kernel E f32 value-only with kernel D inside); ``cli
+     diagnose``; the launch counts read around all of it; then kernel A
+     against its plain version on the students' 3- and 1-step grids (f32
+     and bf16, B = 1 and 8, DDIM and DPM++), the evaluation's VGGish
+     distances against the plain version, and ``trunk_embeddings`` on the
+     card against the CPU;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
@@ -57,7 +76,14 @@ Phases, in order; any failure exits non-zero:
      training step; the AE step at B=128 f32 with LPIPS and with VGGish
      compression (host clock, device time, idle share, peak memory); and
      kernel D in f32 at layer 1, B=128, held against its plain version
-     (m, statistics, target gradient) and timed beside its bytes bound.
+     (m, statistics, target gradient) and timed beside its bytes bound;
+     kernel A on the students' 6-, 3- and 1-step grids at B = 1 and 8
+     beside its 49-step time and the bound of each; the 3-step student's
+     ``cli transfer`` beside its teacher's 99-step one on the same clip;
+     the evaluation block's wall time; kernel E f32 value-only at the
+     evaluation batch beside its bound; and the distill step at B=128
+     bf16, factor 2, unguided and guided (host clock, device time, idle
+     share, peak memory).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -66,6 +92,8 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -136,6 +164,11 @@ TOL_E_INT_BF16 = 1e-5
 TRUNK_CONVS = (("conv2", 64, 64, 128), ("conv3_1", 32, 128, 256),
                ("conv3_2", 32, 256, 256), ("conv4_1", 16, 256, 512),
                ("conv4_2", 16, 512, 512))
+
+# trunk_embeddings (the plain f32 trunk, TF32 off) on the card vs the CPU:
+# max abs error / max |embedding| (cuDNN's and the CPU's sums differ in
+# order only).
+TOL_EMBED = 1e-4
 
 H100_BF16_FLOPS = 989e12   # dense, tensor cores
 H100_F32_FLOPS = 67e12     # outside the tensor cores
@@ -338,6 +371,18 @@ def grad_err_of_max(got: dict, want: dict) -> float:
     return err
 
 
+def run_cli(cli, argv) -> tuple:
+    """cli.main(argv) with its stdout and stderr captured, then echoed:
+    -> (stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    sys.stdout.write(out.getvalue())
+    sys.stderr.write(err.getvalue())
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), err.getvalue()
+
+
 def write_reference_weights(out: Path, seed: int) -> dict:
     """Seeded random weights in the reference's own key layouts (no real
     weights are in the repository): its encoder and decoder Sequentials
@@ -402,8 +447,18 @@ def main() -> int:
         AudioProcessor,
     )
     from music_style_transfer_ldm_tpu_torch.config import default_config
+    from music_style_transfer_ldm_tpu_torch.datasets.folder import (
+        load_image_unit,
+    )
     from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
         ddim_sample, transfer_time_grid,
+    )
+    from music_style_transfer_ldm_tpu_torch.evaluation import (
+        independent_transfer_metrics, style_distances_multiseed,
+        trunk_embeddings,
+    )
+    from music_style_transfer_ldm_tpu_torch.losses.feature import (
+        build_feature_metric,
     )
     from music_style_transfer_ldm_tpu_torch.losses.vggish import (
         VGGishFeatures,
@@ -428,6 +483,9 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.serving.server import serve
     from music_style_transfer_ldm_tpu_torch.training.checkpoint import (
         load_autoencoder, load_feature_checkpoint, save_checkpoint,
+    )
+    from music_style_transfer_ldm_tpu_torch.training.distill import (
+        ProgressiveDistiller,
     )
     from music_style_transfer_ldm_tpu_torch.training.train_autoencoder import (
         AETrainer,
@@ -525,9 +583,9 @@ def main() -> int:
     content = torch.rand(8, 128, 128, 1, device=dev, generator=g)
     style = torch.rand(8, 128, 128, 1, device=dev, generator=g)
 
-    def packed(ldm, B, sampler="ddim", eta=0.0, steps=None):
-        times = transfer_time_grid(50, steps)
-        z_t = ldm.noised_latents(content[:B], 50, seeds=np.arange(B))
+    def packed(ldm, B, sampler="ddim", eta=0.0, steps=None, t_max=50):
+        times = transfer_time_grid(t_max, steps)
+        z_t = ldm.noised_latents(content[:B], t_max, seeds=np.arange(B))
         ops = fs.pack_operands(ldm.unet, ldm.style_embed(style[:B]),
                                ldm.schedule, times, eta, sampler=sampler,
                                batch=B)
@@ -1261,6 +1319,275 @@ def main() -> int:
           "versions")
     results["max_abs_err"]["f32_ae_step"] = err_ae
 
+    # ---- 6c. the distillation and evaluation path ------------------------
+    # a cascade and a guided collapse through cli distill at the defaults
+    # (B=128, bf16, t_max 100) from phase 6's checkpoint, the students
+    # served (cli transfer, HTTP) on their own grids, the evaluation
+    # block on the card and cli diagnose; the launch counts read around
+    # all of it.  The kernels are held against their plain versions at
+    # this path's shapes after the counts are read.
+    ddir = tdir / "distill"
+    teacher32 = load_ldm(full_checkpoint=str(trained), dtype=torch.float32)
+    teacher_sd = {k: v.cpu() for k, v in teacher32.state_dict().items()}
+    # the teacher's weights alone (ldm_final.pt also holds Adam's state),
+    # so that phase 7 times its transfer from a file the student's size
+    save_checkpoint(ddir / "teacher.pt", teacher32)
+    reset_counts()
+    t0 = time.perf_counter()
+    printed, _ = run_cli(cli, [
+        "distill", "--checkpoint", str(trained), "--data-root", str(imgs),
+        "--pairing-file", str(pairs_csv), "--stages", "96,48,24,12,6",
+        "--steps-per-stage", "4", "--inflight-every", "2", "--out-dir",
+        str(ddir / "cascade")])
+    torch.cuda.synchronize()
+    cli_distill_s = time.perf_counter() - t0
+    check("--steps 100 --sample-steps 4" in printed,
+          "cli distill's closing line does not name the student's grid")
+    rows = (ddir / "cascade" / "distill_metrics.csv").read_text().splitlines()
+    stage_rows = [dict(zip(rows[0].split(","), map(float, r.split(","))))
+                  for r in rows[1:]]
+    check(len(stage_rows) == 5 and all(
+        np.isfinite(r["loss_head"]) and np.isfinite(r["loss_tail"])
+        for r in stage_rows), "cli distill logged a non-finite loss")
+    moved_unet, frozen_moved = [], []
+    for n, stages_n in ((48, [96]), (24, [96, 48]), (12, [96, 48, 24]),
+                        (6, [96, 48, 24, 12]), (3, [96, 48, 24, 12, 6])):
+        payload = torch.load(ddir / "cascade" / f"distilled_{n}.pt",
+                             map_location="cpu", weights_only=True)
+        check(payload["distill"] == {"steps": n, "t_max": 100,
+                                     "stages": stages_n, "guidance": 1.0},
+              f"distilled_{n}.pt metadata {payload['distill']}")
+        frozen_moved += [f"{n}:{k}" for k, v in payload["params"].items()
+                         if not k.startswith("unet.")
+                         and not torch.equal(v, teacher_sd[k])]
+        moved_unet.append(any(not torch.equal(v, teacher_sd[k])
+                              for k, v in payload["params"].items()
+                              if k.startswith("unet.")))
+    print(f"cli distill --stages 96,48,24,12,6 --steps-per-stage 4 (B=128, "
+          f"bf16, t_max 100): {cli_distill_s:.2f} s wall; stages (head, "
+          f"tail) {[(r['loss_head'], r['loss_tail']) for r in stage_rows]};"
+          f" encoder, decoder, style encoder bit for bit the teacher's: "
+          f"{not frozen_moved}; UNet moved in every checkpoint: "
+          f"{all(moved_unet)}")
+    check(not frozen_moved, f"distillation moved frozen weights: "
+          f"{frozen_moved[:3]}")
+    check(all(moved_unet), "a student's UNet did not move")
+    check(not list((ddir / "cascade").glob("inflight_*")),
+          "an in-flight save outlived its stage")
+    printed, _ = run_cli(cli, [
+        "distill", "--checkpoint", str(trained), "--data-root", str(imgs),
+        "--pairing-file", str(pairs_csv), "--stages", "6,3", "--guidance",
+        "2.0", "--steps-per-stage", "2", "--out-dir", str(ddir / "guided")])
+    meta1 = torch.load(ddir / "guided" / "distilled_1.pt", map_location="cpu",
+                       weights_only=True)["distill"]
+    check(meta1 == {"steps": 1, "t_max": 100, "stages": [6, 3],
+                    "guidance": 2.0}, f"distilled_1.pt metadata {meta1}")
+    check("--steps 100 --sample-steps 2" in printed, "the guided cascade's "
+          "closing line")
+    d3 = ddir / "cascade" / "distilled_3.pt"
+    d1 = ddir / "guided" / "distilled_1.pt"
+
+    # the 3-step student served on its grid: the CLI (fused: kernels A
+    # and C; ddim: B) and the HTTP server, which adopts the grid
+    a_before = fs.fused_ddim_sample.launches
+    t0 = time.perf_counter()
+    _, err = run_cli(cli, [
+        "transfer", "--checkpoint", str(d3), "--content", str(content_wav),
+        "--style", str(imgs / "rock" / "000.png"), "--sampler", "fused",
+        "--steps", "100", "--sample-steps", "4", "--overlap", "0.5",
+        "--output", str(ddir / "student_transfer")])
+    torch.cuda.synchronize()
+    student_transfer_s = time.perf_counter() - t0
+    a_transfer = fs.fused_ddim_sample.launches - a_before
+    png = read_png_gray((ddir / "student_transfer.png").read_bytes())
+    sr_out, audio = wavfile.read(ddir / "student_transfer.wav")
+    check(png.shape == (128, 128 * n_chunks) and sr_out == 22050
+          and bool(np.isfinite(audio).all()), "the student's cli transfer")
+    check("distilled for" not in err, "cli transfer warned on the student's "
+          "own grid")
+    check(a_transfer == -(-n_chunks // 8), f"kernel A ran {a_transfer} "
+          f"times for {n_chunks} chunks")
+    _, err7 = run_cli(cli, [
+        "transfer", "--checkpoint", str(d3), "--content",
+        str(imgs / "classic" / "000.png"), "--style",
+        str(imgs / "rock" / "000.png"), "--sampler", "fused", "--steps",
+        "100", "--sample-steps", "7", "--output",
+        str(ddir / "student_off_grid")])
+    check("WARNING: checkpoint was distilled for --steps 100 --sample-steps 4"
+          in err7, "cli transfer did not warn off the student's grid")
+    b_before = fused_ddim_update.launches
+    run_cli(cli, [
+        "transfer", "--checkpoint", str(d3), "--content",
+        str(imgs / "classic" / "000.png"), "--style",
+        str(imgs / "rock" / "000.png"), "--sampler", "ddim", "--steps",
+        "100", "--sample-steps", "4", "--output",
+        str(ddir / "student_ddim")])
+    b_transfer = fused_ddim_update.launches - b_before
+    check(b_transfer == 3, f"the 3-step student's scan DDIM ran kernel B "
+          f"{b_transfer} times")
+    serve_args = cli.build_parser().parse_args(
+        ["serve", "--checkpoint", str(d3), "--sampler", "fused"])
+    student_engine = cli.build_engines(serve_args)["default"]
+    cfg_e = student_engine.config
+    check(cfg_e.steps == 100 and cfg_e.sample_steps == 4, f"the server "
+          f"serves the student at steps {cfg_e.steps} sample_steps "
+          f"{cfg_e.sample_steps}, not its grid (100, 4)")
+    httpd = serve(student_engine, host="127.0.0.1", port=0, block=False)
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/transfer",
+            data=json.dumps(bodies["transfer"]).encode(),
+            headers={"Content-Type": "application/json"})
+        a_before = fs.fused_ddim_sample.launches
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, body = resp.status, json.loads(resp.read())
+        student_http_s = time.perf_counter() - t0
+        a_http = fs.fused_ddim_sample.launches - a_before
+        png = read_png_gray(base64.b64decode(body["image_png_b64"]))
+        sr_out, audio = wavfile.read(io.BytesIO(
+            base64.b64decode(body["audio_wav_b64"])))
+        check(status == 200 and png.shape == (128, 128)
+              and audio.shape == (66150,)
+              and bool(np.isfinite(audio).all()), "HTTP /v1/transfer of the "
+              "student")
+        check(a_http == 1, f"one request ran kernel A {a_http} times")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        student_engine.stop()
+    print(f"the 3-step student: cli transfer (9 s, fused, --steps 100 "
+          f"--sample-steps 4) {student_transfer_s:.2f} s, {a_transfer} A "
+          f"launch(es), no warning; --sample-steps 7 warns; --sampler ddim "
+          f"{b_transfer} B launches; HTTP /v1/transfer on the adopted grid "
+          f"(steps {cfg_e.steps}, sample_steps {cfg_e.sample_steps}) "
+          f"{student_http_s:.3f} s, {a_http} A launch")
+
+    # evaluation: the teacher's full grid, the teacher and the student on
+    # the student's 4-point grid, B=8 seeded pairs, bf16 (the served type)
+    t_eval = time.perf_counter()
+    ev_content = np.stack([load_image_unit(imgs / "classic" / f"{i:03d}.png")
+                           for i in range(8)])
+    ev_style = np.stack([load_image_unit(imgs / "rock" / f"{i:03d}.png")
+                         for i in range(8)])
+    ev_c, ev_s = torch.as_tensor(ev_content), torch.as_tensor(ev_style)
+    teacher16 = load_ldm(full_checkpoint=str(trained))
+    student16 = load_ldm(full_checkpoint=str(d3))
+    outs_ev = {name: fs.fused_content_style_transfer(
+        m, ev_c, ev_s, num_timesteps=100, steps=steps,
+        seeds=np.arange(8)).float().cpu().numpy()
+        for name, m, steps in (("teacher_100", teacher16, None),
+                               ("teacher_coarse", teacher16, 4),
+                               ("student", student16, 4))}
+    fidelity = {}
+    for name in ("teacher_coarse", "student"):
+        mse = float(np.mean((outs_ev[name] - outs_ev["teacher_100"]) ** 2))
+        fidelity[name] = {"mse_vs_teacher_100": mse,
+                          "psnr_db": 10 * np.log10(1.0 / max(mse, 1e-12))}
+    e_d_before = (ft.fused_trunk.launches,
+                  nm.normalized_mse_forward.launches)
+    t_metrics = time.perf_counter()
+    eval_metrics = independent_transfer_metrics(ev_content, ev_style,
+                                                outs_ev["student"])
+    torch.cuda.synchronize()
+    eval_metrics_s = time.perf_counter() - t_metrics
+    eval_block_s = time.perf_counter() - t_eval
+    e_eval = ft.fused_trunk.launches - e_d_before[0]
+    d_eval = nm.normalized_mse_forward.launches - e_d_before[1]
+    print(f"evaluation, B=8 (bf16, fused): pixel MSE / PSNR against the "
+          f"teacher's 99-step transfer {fidelity}; independent_transfer_"
+          f"metrics of the student on the card {eval_metrics}; kernel E "
+          f"launches {e_eval}, kernel D forward launches {d_eval}; block "
+          f"{eval_block_s:.2f} s (metrics {eval_metrics_s:.2f} s)")
+    # two seeds, two distances each: one E launch per distance, with D's
+    # forward once per trunk layer inside it
+    check(e_eval == 4 and d_eval == 4 * 6, f"the evaluation's distances ran"
+          f" kernel E {e_eval} and D {d_eval} times, not 4 and 24")
+    check(all(np.isfinite(v) for v in eval_metrics[
+        "vggish_multiseed_style_reduction_pct"].values())
+        and np.isfinite(eval_metrics["fad_transfer_vs_style_corpus"]),
+        "the evaluation metrics are not finite")
+
+    printed, _ = run_cli(cli, ["diagnose", "--checkpoint", str(d3)])
+    n_params = sum(p.numel() for p in build_ldm(device=dev).parameters())
+    total_line = next(ln for ln in printed.splitlines()
+                      if ln.split()[:1] == ["total"])
+    check(int(total_line.split()[1].replace(",", "")) == n_params,
+          f"cli diagnose: {total_line.strip()} against {n_params} "
+          "parameters")
+    check("DEAD" not in printed, "cli diagnose flagged a level of a random "
+          "style encoder dead")
+    distill_launches = read_counts()
+    print(f"distillation and evaluation path: launches {distill_launches}")
+    for fn in counted:
+        if fn is not nm.normalized_mse_backward:   # distances: value only
+            check(distill_launches[fn.__name__] > 0,
+                  f"{fn.__name__} never ran on the distillation and "
+                  "evaluation path")
+    results["launches"]["distill"] = distill_launches
+
+    # the path's kernels against their plain versions at its shapes:
+    # kernel A on the students' short grids (3 steps: distilled_3; 1 step:
+    # distilled_1), f32 and bf16, B = 1 and 8, DDIM and DPM++(2M)
+    err_short = {}
+    for path_s, n_s in ((d3, 3), (d1, 1)):
+        for dt in (torch.float32, torch.bfloat16):
+            ldm_s = load_ldm(full_checkpoint=str(path_s), dtype=dt)
+            for B in (1, 8):
+                for sampler in ("ddim", "dpm++"):
+                    ops, z_t, n = packed(ldm_s, B, sampler, steps=n_s + 1,
+                                         t_max=100)
+                    check(n == n_s and ops.coefs.shape[0] == n_s,
+                          f"a {n_s}-step grid packed {n} steps")
+                    k = fs.fused_ddim_sample(ops, z_t, n)
+                    r = fs.reference_ddim_sample(ops, z_t, n)
+                    if dt == torch.float32:
+                        err = (k - r).abs().max().item()
+                        tol = TOL_KERNEL_A
+                    else:
+                        err = (ldm_s.decode_unit(k.permute(0, 3, 1, 2))
+                               - ldm_s.decode_unit(r.permute(0, 3, 1, 2))
+                               ).abs().max().item()
+                        tol = TOL_KERNEL_A_BF16
+                    key = f"{n_s} steps {str(dt)[6:]} B={B} {sampler}"
+                    err_short[key] = err
+                    check(bool(torch.isfinite(k).all()) and err <= tol,
+                          f"kernel A on a {n_s}-step grid ({key}): max abs "
+                          f"err {err:.3g} (tol {tol})")
+            del ldm_s
+    print(f"kernel A vs plain on the students' grids (f32: latents, tol "
+          f"{TOL_KERNEL_A}; bf16: decoded, tol {TOL_KERNEL_A_BF16}): "
+          f"{ {k: float(f'{v:.3g}') for k, v in err_short.items()} }")
+    # kernels E (f32 value-only) and D inside the evaluation's distances
+    raw = {impl: style_distances_multiseed(ev_content, ev_style,
+                                           outs_ev["student"], impl=impl)
+           for impl in ("auto", "plain")}
+    err_eval_e = max(abs(a - b) / b for seed in raw["plain"] for a, b in
+                     zip(raw["auto"][seed], raw["plain"][seed]))
+    emb_card = trunk_embeddings(ev_content, seed=11)
+    emb_cpu = trunk_embeddings(ev_content, seed=11, device="cpu")
+    err_embed = float(np.abs(emb_card - emb_cpu).max()
+                      / np.abs(emb_cpu).max())
+    print(f"evaluation's VGGish distances (seeds 11, 29; d(content, style), "
+          f"d(student, style)): kernels E f32 value-only + D {raw['auto']}, "
+          f"plain {raw['plain']}: max rel err {err_eval_e:.3g} (tol "
+          f"{TOL_E_VALUE}); trunk_embeddings card vs CPU max abs / max "
+          f"{err_embed:.3g} (tol {TOL_EMBED})")
+    check(err_eval_e <= TOL_E_VALUE, "kernel E (f32 value-only) disagrees "
+          "with the plain version in the evaluation's distances")
+    check(err_embed <= TOL_EMBED, "trunk_embeddings on the card disagree "
+          "with the CPU")
+    results["max_abs_err"]["distill_path"] = {
+        "kernel_a_short_grids": err_short, "eval_vggish_rel": err_eval_e,
+        "trunk_embeddings_of_max": err_embed}
+    results["distill"] = {
+        "cli_distill_s": cli_distill_s, "stages": stage_rows,
+        "student_transfer_s": student_transfer_s,
+        "student_http_s": student_http_s, "fidelity": fidelity,
+        "eval_metrics": eval_metrics, "eval_block_s": eval_block_s,
+        "eval_metrics_s": eval_metrics_s}
+    del teacher16, student16
+
     # ---- 7. times -------------------------------------------------------
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
@@ -1300,6 +1627,22 @@ def main() -> int:
     check(all(B in faster for B in times["kernel_a_ms"]
               if B <= engine.fused_bucket_max),
           "kernel A is slower than the scan route at a bucket routed to it")
+    # kernel A on the students' grids (t_max 100: 6, 3 and 1 steps), bf16,
+    # beside its 49-step time at the same batch and the bound of each
+    times["kernel_a_short"] = {}
+    for n_s in (6, 3, 1):
+        for B in (1, 8):
+            ops, z_t, n = packed(ldm, B, steps=n_s + 1, t_max=100)
+            cost = fs.trajectory_cost(ops, n)
+            r = times["kernel_a_short"][f"{n_s}_steps_b{B}"] = {
+                "ms": cuda_ms(lambda: fs.fused_ddim_sample(ops, z_t, n), 50),
+                "bound_ms": 1e3 * max(cost["flops"] / H100_BF16_FLOPS,
+                                      cost["bytes"] / H100_BYTES)}
+            print(f"time {card} B={B}, {n} step(s), bf16: kernel A "
+                  f"{r['ms']:.3f} ms/trajectory ({1e3 * r['ms'] / n:.1f} "
+                  f"us/step; 49 steps: {times['kernel_a_ms'][B]:.3f} ms, "
+                  f"{1e3 * times['kernel_a_ms'][B] / 49:.1f} us/step), bound "
+                  f"{r['bound_ms']:.5f} ms")
     ab49, ab48 = float(ab[49]), float(ab[48])
     xb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
     eb = torch.randn(8, 16, 16, 32, device=dev, generator=g)
@@ -1396,6 +1739,33 @@ def main() -> int:
           f"steps): {http_s['transfer'][0]:.3f} s first, "
           f"{http_s['transfer'][1]:.3f} s second; /v1/generate (scan DDIM, "
           f"50 steps): {http_s['generate'][0]:.3f} s")
+    # the 3-step student's cli transfer beside its teacher's 99-step one:
+    # same clip and arguments, checkpoints of one size, in turns
+    transfer_args = ["--content", str(content_wav), "--style",
+                     str(imgs / "rock" / "000.png"), "--sampler", "fused",
+                     "--steps", "100", "--overlap", "0.5"]
+    wall: dict = {"teacher_99_steps": [], "student_3_steps": []}
+    for name in ("teacher_99_steps", "student_3_steps", "student_3_steps",
+                 "teacher_99_steps"):
+        ckpt_t, extra = ((ddir / "teacher.pt", []) if name.startswith("t")
+                         else (d3, ["--sample-steps", "4"]))
+        t0 = time.perf_counter()
+        run_cli(cli, ["transfer", "--checkpoint", str(ckpt_t),
+                      *transfer_args, *extra, "--output",
+                      str(ddir / f"timed_{name}")])
+        torch.cuda.synchronize()
+        wall[name].append(time.perf_counter() - t0)
+    times["distill_cli_transfer_s"] = wall
+    times["eval_block_s"] = {"block": eval_block_s,
+                             "independent_transfer_metrics": eval_metrics_s}
+    print(f"time {card} cli transfer, {content_wav.name} (9 s, {n_chunks} "
+          f"chunks, fused, --steps 100, overlap 0.5; runs teacher, student, "
+          f"student, teacher): teacher (99 steps) "
+          f"{[round(x, 3) for x in wall['teacher_99_steps']]} s wall, "
+          f"3-step student (--sample-steps 4) "
+          f"{[round(x, 3) for x in wall['student_3_steps']]} s; evaluation "
+          f"block (three B=8 transfers and the metrics) {eval_block_s:.2f} "
+          f"s, independent_transfer_metrics {eval_metrics_s:.2f} s")
     # kernel D: layer 1 of VGGish, bf16, B=128 (p16, t16 from phase 3)
     kd_ms = cuda_ms(lambda: nm.normalized_mse_forward(p16, t16), 20)
     pd_ms = cuda_ms(lambda: nm.normalized_mse_forward_reference(p16, t16), 5)
@@ -1455,6 +1825,27 @@ def main() -> int:
     print(f"time {card} kernel E value B=128: the cuDNN chain of its five "
           f"convs (bf16, channels_last) {e_library_ms:.3f} ms; the kernel's "
           f"five convs {sum(r['fwd_ms'] for r in convs.values()):.3f} ms")
+    # kernel E f32 value-only at the evaluation batch (B=8, 128x128, a
+    # seed-11 trunk as the evaluation builds it); bound: its convs'
+    # operations at the f32 rate (CUDA cores)
+    vgg_eval = build_feature_metric("vggish", torch.float32, seed=11).module
+    f1e = ft.conv1_both(vgg_eval, ev_c.to(dev), ev_s.to(dev))
+    cost = ft.trunk_cost(vgg_eval, 8, 128, 128, 4, False)
+    w8e = torch.ones(8, device=dev)
+    times["kernel_e_eval_f32"] = r = {
+        "ms": cuda_ms(lambda: ft.fused_trunk(vgg_eval, f1e, False), 5),
+        "plain_ms": cuda_ms(lambda: ft.fused_trunk_reference(
+            vgg_eval, f1e, False), 5),
+        "distance_ms": cuda_ms(lambda: ft.fused_vggish_distance_value(
+            vgg_eval, ev_c.to(dev), ev_s.to(dev), w8e), 5),
+        "bound_ms": 1e3 * max(cost["flops"] / H100_F32_FLOPS,
+                              cost["bytes"] / H100_BYTES)}
+    print(f"time {card} kernel E f32 value B=8 128x128 (the evaluation's "
+          f"distance): {r['ms']:.3f} ms/call, plain version "
+          f"{r['plain_ms']:.3f} ms, the whole value call (conv1, E, D) "
+          f"{r['distance_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+          f"(operations: {cost['flops'] / 1e12:.4f} TFLOP at 67 TFLOP/s)")
+    del f1e
     # the training step at B=128, bf16, defaults
     trainer_t = LDMTrainer(default_config())
     state_t = trainer_t.init_state(0)
@@ -1510,6 +1901,43 @@ def main() -> int:
                                    "top_kernels_ms": [
                                        (k, v / 1e3) for v, k in
                                        kernels_us[:12]]}
+    # the distill step at B=128, bf16, factor 2 (the default cascade's
+    # first stage, 96 -> 48), unguided and guided (a doubled-batch teacher
+    # call): host clock over 5 steps ending in a synchronise, device time
+    # from one profiled step, idle share, peak memory
+    times["distill_step"] = {}
+    dist = ProgressiveDistiller(default_config())
+    for tag, gd in (("unguided", 1.0), ("guided", 2.0)):
+        student_t = copy.deepcopy(teacher32)
+        student_t.unet.requires_grad_(True)
+        stage_t = dist.start_stage(student_t, 0, 96, 48, 1e-4, gd)
+        box = [0]
+
+        def distill_step():
+            dist.step(student_t, stage_t, c128, s128, 0, box[0])
+            box[0] += 1
+        distill_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            distill_step()
+        torch.cuda.synchronize()
+        r = times["distill_step"][tag] = {
+            "ms": 1e3 * (time.perf_counter() - t0) / 5,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        d_kernels = profiled_kernels(distill_step,
+                                     work / "profile" / f"distill_{tag}")
+        r["device_ms"] = sum(us for us, _ in d_kernels) / 1e3
+        r["idle_share"] = 1.0 - r["device_ms"] / r["ms"]
+        r["top_kernels_ms"] = [(k, us / 1e3) for us, k in d_kernels[:6]]
+        print(f"time {card} distill step B=128 bf16 factor 2 ({tag}): "
+              f"{r['ms']:.1f} ms/step (host clock over 5 steps), device "
+              f"{r['device_ms']:.2f} ms (torch.profiler), idle share "
+              f"{r['idle_share']:.3f}, peak memory {r['peak_mib']:.0f} MiB; "
+              f"top kernels (ms) "
+              f"{[(k[:50], round(v, 2)) for k, v in r['top_kernels_ms']]}")
+        del student_t, stage_t
     # the AE step at B=128, f32 (TF32 off inside the step, as in phase
     # 6b), LPIPS and VGGish compression: host clock per step, each ending
     # in a synchronise (StepTimer, mean and p95 of 5), device time from one

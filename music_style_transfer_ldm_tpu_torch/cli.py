@@ -14,15 +14,21 @@
       --pretrained-ae runs/ae/pretrained.pt --epochs N --out-dir runs/ldm
   python -m music_style_transfer_ldm_tpu_torch.cli import-torch \\
       --encoder encoder.pth --decoder decoder.pth --out ae.pt
+  python -m music_style_transfer_ldm_tpu_torch.cli distill \\
+      --checkpoint runs/ldm/ldm_final.pt --data-root images/ \\
+      --pairing-file pairs.csv --out-dir runs/distill
+  python -m music_style_transfer_ldm_tpu_torch.cli diagnose --checkpoint ckpt.pt
 
 Checkpoints are the port's own format (``training/checkpoint.py``).
 ``train --model autoencoder`` writes ``pretrained.pt`` (the best
 validation loss), which ``train --model ldm --pretrained-ae`` loads and
 freezes; ``train --model ldm`` writes ``ldm_final.pt``, which
 ``transfer`` and ``generate`` read.  ``import-torch`` converts the
-reference's own ``.pth`` weights into these formats.  Everything runs
-on the card; ``--device cpu`` runs the plain PyTorch versions of the
-kernels on the CPU instead (the tests use it).
+reference's own ``.pth`` weights into these formats.  ``distill`` writes
+one ``distilled_<n>.pt`` per stage, an n-step student that ``transfer``
+and ``serve`` sample at ``--steps <t_max> --sample-steps <n + 1>``.
+Everything runs on the card; ``--device cpu`` runs the plain PyTorch
+versions of the kernels on the CPU instead (the tests use it).
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ from music_style_transfer_ldm_tpu_torch.datasets.folder import (
 from music_style_transfer_ldm_tpu_torch.datasets.loader import (
     BatchLoader, prepare_dataset,
 )
+from music_style_transfer_ldm_tpu_torch.evaluation.diagnostics import (
+    detect_dead_style_encoder, parameter_table, style_embedding_stats,
+)
 from music_style_transfer_ldm_tpu_torch.interop.torch_weights import (
     convert_autoencoder_state_dicts, convert_ldm_state_dict,
 )
@@ -75,6 +84,9 @@ from music_style_transfer_ldm_tpu_torch.serving.engine import (
 )
 from music_style_transfer_ldm_tpu_torch.serving.server import serve
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
+from music_style_transfer_ldm_tpu_torch.training.distill import (
+    ProgressiveDistiller,
+)
 from music_style_transfer_ldm_tpu_torch.training.train_autoencoder import (
     AETrainer,
 )
@@ -484,6 +496,64 @@ def cmd_import_torch(args) -> int:
     return 0
 
 
+def cmd_distill(args) -> int:
+    """Progressive distillation of the transfer sampler
+    (``training/distill.py``) from a full checkpoint (its EMA weights when
+    it has them) over a pairings CSV; one ``distilled_<n>.pt`` per stage
+    under --out-dir."""
+    cfg = default_config()
+    if args.batch_size:
+        cfg.train = dataclasses.replace(cfg.train,
+                                        batch_size=args.batch_size)
+    dist = ProgressiveDistiller(cfg, t_max=args.t_max, device=args.device)
+    root = args.data_root or cfg.data.processed_dir
+    pairs = SpectrogramPairDataset(root, args.pairing_file
+                                   or cfg.data.pairing_file)
+    loader = BatchLoader(pairs, cfg.train.batch_size, shuffle=True,
+                         seed=cfg.train.seed)
+    teacher = load_ldm(cfg, full_checkpoint=args.checkpoint,
+                       dtype=torch.float32, device=args.device)
+    stages = [int(s) for s in args.stages.split(",") if s]
+    _, info = dist.distill(teacher, loader, stages=stages,
+                           steps_per_stage=args.steps_per_stage,
+                           lr=args.lr, out_dir=args.out_dir,
+                           seed=cfg.train.seed, guidance=args.guidance,
+                           inflight_every=args.inflight_every)
+    final = info["steps"]
+    # The student only saw linspace(t_max - 1, 0, N + 1): --steps must be
+    # the distillation's t_max.
+    print(f"distilled to {final} steps; transfer with "
+          f"--steps {info['t_max']} --sample-steps {final + 1} "
+          f"(grids: {info['stages']} -> {final})"
+          f"; checkpoints under {args.out_dir}")
+    return 0
+
+
+def cmd_diagnose(args) -> int:
+    """The parameter table and the dead-style-encoder probe (the style
+    pyramid's spread over 8 seeded random styles) of a checkpoint."""
+    cfg = default_config()
+    ldm = load_ldm(cfg, full_checkpoint=args.checkpoint,
+                   use_ema=not args.raw_weights, device=args.device)
+    table = parameter_table(ldm)
+    print("parameter counts:")
+    for k, v in table.items():
+        print(f"  {k:<16} {v:>12,}")
+    rng = np.random.RandomState(0)
+    styles = rng.rand(8, cfg.model.image_size, cfg.model.image_size,
+                      1).astype(np.float32)
+    with torch.no_grad():
+        embs = ldm.style_embed(torch.as_tensor(styles))
+    stats = style_embedding_stats(embs)
+    dead = detect_dead_style_encoder(embs)
+    print("style embedding stats (std ~ 0 across distinct styles = dead):")
+    for k in sorted(stats):
+        flag = "  DEAD" if dead[k] else ""
+        print(f"  {k}: std={stats[k]['std']:.5f} "
+              f"zero_frac={stats[k]['zero_fraction']:.3f}{flag}")
+    return 0
+
+
 def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
@@ -634,6 +704,44 @@ def build_parser() -> argparse.ArgumentParser:
                          "checkpoint (train --compression-features)")
     it.add_argument("--out", required=True)
     it.set_defaults(fn=cmd_import_torch)
+
+    dl = sub.add_parser(
+        "distill", help="progressive sampler distillation: halve the "
+                        "transfer grid stage by stage")
+    dl.add_argument("--checkpoint", required=True,
+                    help="converged full-LDM (or train-state) checkpoint")
+    dl.add_argument("--data-root")
+    dl.add_argument("--pairing-file")
+    dl.add_argument("--out-dir", default="runs/distill")
+    dl.add_argument("--stages", default="96,48,24,12,6",
+                    help="comma-separated teacher step counts; each entry "
+                         "distills a student with the NEXT entry's step "
+                         "count (integer factor >= 2); the final student "
+                         "= last//2, or 1 when the last entry is odd "
+                         "(e.g. 48,24,12,6,3 ends at one denoiser eval)")
+    dl.add_argument("--steps-per-stage", type=int, default=400)
+    dl.add_argument("--inflight-every", type=int, default=200,
+                    help="checkpoint the live stage every N steps and "
+                         "resume an interrupted stage from it (0 = off)")
+    dl.add_argument("--lr", type=float, default=1e-4)
+    dl.add_argument("--batch-size", type=int)
+    dl.add_argument("--t-max", type=int, default=100,
+                    help="transfer noise level the grids cover (matches "
+                         "`transfer --steps`)")
+    dl.add_argument("--guidance", type=float, default=1.0,
+                    help="distill a classifier-free-guided teacher at this "
+                         "fixed scale (first stage only; needs a "
+                         "style_dropout-trained checkpoint): the students "
+                         "bake the amplified style in and sample unguided")
+    dl.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs in f32 (tests)")
+    dl.set_defaults(fn=cmd_distill)
+
+    dg = sub.add_parser("diagnose", help="parameter table + dead-style-"
+                                         "encoder probe on a checkpoint")
+    dg.add_argument("--checkpoint", required=True)
+    _common(dg)
+    dg.set_defaults(fn=cmd_diagnose)
     return p
 
 

@@ -6,7 +6,9 @@ One ``torch.save`` file holding
      "distill": dict | None, "format_version": 2}
 
 and, written by training (``save_train_state``), also ``opt_state`` (the
-optimizer's state dict) and ``step``, so a run resumes where it stopped;
+optimizer's state dict) and ``step``, so a run resumes where it stopped
+(distillation's in-flight saves add their stage's identity as
+``extra``);
 with the keys of the JAX package's checkpoint payload: ``params`` is the
 model's whole state dict (BatchNorm statistics included; the LDM's, or
 the autoencoder trainer's encoder and decoder), ``ema_params``
@@ -138,18 +140,23 @@ def load_feature_checkpoint(path: str | Path) -> dict:
     return _load(path, "kind")
 
 
-def save_train_state(path: str | Path, state: TrainState) -> None:
+def save_train_state(path: str | Path, state: TrainState,
+                     extra: Optional[dict] = None) -> None:
     """A checkpoint of the whole train state: ``load_ldm`` reads it as it
-    reads any checkpoint, ``restore_train_state`` resumes from it."""
+    reads any checkpoint, ``restore_train_state`` resumes from it.
+    ``extra`` (plain numbers) rides along under the key ``extra``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": _cpu_state(state.model.state_dict()),
-                "ema_params": (None if state.ema_params is None
-                               else _cpu_state(state.ema_params)),
-                "distill": None,
-                "opt_state": _cpu_tree(state.optimizer.state_dict()),
-                "step": int(state.step),
-                "format_version": FORMAT_VERSION}, path)
+    payload = {"params": _cpu_state(state.model.state_dict()),
+               "ema_params": (None if state.ema_params is None
+                              else _cpu_state(state.ema_params)),
+               "distill": None,
+               "opt_state": _cpu_tree(state.optimizer.state_dict()),
+               "step": int(state.step),
+               "format_version": FORMAT_VERSION}
+    if extra:
+        payload["extra"] = dict(extra)
+    torch.save(payload, path)
 
 
 def restore_train_state(path: str | Path, state: TrainState) -> TrainState:

@@ -54,6 +54,7 @@ def test_package_import_leaves_jax_unloaded():
 
 
 def test_entry_points_need_the_card_unless_asked():
+    from music_style_transfer_ldm_tpu_torch import cli
     from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
     from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
     if torch.cuda.is_available():
@@ -63,6 +64,10 @@ def test_entry_points_need_the_card_unless_asked():
         build_ldm()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    for argv in (["distill", "--checkpoint", "missing.pt"],
+                 ["diagnose", "--checkpoint", "missing.pt"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
     assert build_ldm(device="cpu").device.type == "cpu"
 
 

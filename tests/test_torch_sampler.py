@@ -158,7 +158,14 @@ def _batch(pair, batch):
     (4, "dpm++", 14, 7, DPM_ATOL),
     (3, "ddim", 12, None, FUSED_ATOL),
     (8, "ddim", 12, None, FUSED_ATOL),
-    (8, "dpm++", 14, 7, DPM_ATOL)])
+    (8, "dpm++", 14, 7, DPM_ATOL),
+    # distilled students' grids (t_max 100, 1 and 3 steps): a 1-step grid
+    # runs its first step as its last; DPM++(2M)'s first step is first
+    # order
+    (1, "ddim", 100, 2, FUSED_ATOL),
+    (4, "ddim", 100, 4, FUSED_ATOL),
+    (1, "dpm++", 100, 2, DPM_ATOL),
+    (4, "dpm++", 100, 4, DPM_ATOL)])
 def test_fused_plain_version_matches_jax(pair, batch, sampler, n, steps,
                                          atol):
     model, variables, port, _, _ = pair
