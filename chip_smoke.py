@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
   2. build: nvcc compiles the fused-trajectory kernel (A), the DDIM
      update (B), the mel front-end kernel (C), the normalized-MSE layer
      (D) and the VGGish trunk (E), all CUDA C++ for sm_90a, one nvcc per
-     source, in parallel;
+     source, and the host compiler the spec-pack reader, all in parallel;
   3. every kernel against its plain PyTorch version at the main paths'
      shapes, with the tolerances stated below (B with f32 and bf16 eps,
      out of place and in place with its pred_x0 output; C on four
@@ -67,13 +67,27 @@ Phases, in order; any failure exits non-zero:
      and bf16, B = 1 and 8, DDIM and DPM++), the evaluation's VGGish
      distances against the plain version, and ``trunk_embeddings`` on the
      card against the CPU;
+  6d. the data path at the reference's scale: seeded WAVs, 4 instruments
+     x one 30-minute file (three 22.05 kHz mono, one 44.1 kHz 16-bit
+     stereo, silence at both ends), through ``cli build-dataset`` (kernel
+     C at B = 64 and each file's remainder: its launches counted against
+     ceil(chunks / 64) per file, its PNGs against the host arithmetic,
+     both batch sizes held against the plain version on real chunks and
+     B = 64 timed beside its bound); ``datasets.packed --pack`` (the
+     native reader required, bit-equal to the numpy one on 1,024 seeded
+     indices); ``cli generate-pairings`` (15,000); ``BatchLoader`` over
+     the PNGs, ``PackedBatchLoader(uint8)`` and ``DevicePairLoader`` over
+     the card-resident corpus: their first 20 batches of B=128 identical
+     on the card after ``as_unit_images``, each timed alone, then 20 LDM
+     steps (B=128, bf16, defaults) fed by each (host clock, device time,
+     idle share, peak memory), with the launch counts read around them;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
      shared memory per block and launch plan; kernels B and C back to
-     back, and also their device time per launch (torch.profiler) and
-     host time per call (1,000 calls, no sync); a profile of one
-     training step; the AE step at B=128 f32 with LPIPS and with VGGish
+     back, and also their device time per launch (CUDA events over
+     launches queued behind a sleep kernel) and host time per call
+     (1,000 calls, no sync); a profile of one training step; the AE step at B=128 f32 with LPIPS and with VGGish
      compression (host clock, device time, idle share, peak memory); and
      kernel D in f32 at layer 1, B=128, held against its plain version
      (m, statistics, target gradient) and timed beside its bytes bound;
@@ -97,6 +111,8 @@ import copy
 import dataclasses
 import io
 import json
+import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -169,6 +185,11 @@ TRUNK_CONVS = (("conv2", 64, 64, 128), ("conv3_1", 32, 128, 256),
 # max abs error / max |embedding| (cuDNN's and the CPU's sums differ in
 # order only).
 TOL_EMBED = 1e-4
+# Phase 6d's WAVs: 1,798.5 s of content (599.5 chunks of 3 s, so a trim
+# within a frame of the content leaves 600) inside 0.75 s of silence at
+# both ends: 30 minutes a file, the reference's cap.
+DATA_CONTENT_S = 1798.5
+DATA_SILENCE_S = 0.75
 
 H100_BF16_FLOPS = 989e12   # dense, tensor cores
 H100_F32_FLOPS = 67e12     # outside the tensor cores
@@ -214,27 +235,34 @@ def host_us(fn, reps=1000):
     return us
 
 
-def device_us(fn, kernel, reps=50):
-    """Mean device microseconds per launch of the kernels whose name holds
-    ``kernel``, from torch.profiler over reps calls of fn."""
+def device_us(fn, reps=50):
+    """Mean card microseconds per call of fn: reps calls queued behind a
+    sleep kernel long enough that the host has issued them all before the
+    card reaches the first, timed by CUDA events around them.  The host's
+    issue time is hidden; the card's gap between launches is counted.
+    (torch.profiler's short windows missed 1 to 50 of 50 launches once
+    other profiles had run in the process.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cycles = 1 << 21
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key and str(getattr(
-                evt, "device_type", "")).endswith("CUDA"):
-            total += getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0))
-            count += evt.count
-    check(count >= reps, f"the profile saw {count} launches of {kernel}")
-    return total / count
+        marks[2].record()
+        issue_ms = 1e3 * (time.perf_counter() - t0)
+        marks[2].synchronize()
+        # the card left the sleep after the host had issued the last call
+        if marks[0].elapsed_time(marks[1]) > issue_ms:
+            return 1e3 * marks[1].elapsed_time(marks[2]) / reps
+        cycles *= 4
+    fail(f"a sleep of {cycles // 4} cycles did not cover the host's issue "
+         f"of {reps} calls")
 
 
 def conv_taps_f32(x, w9, dgrad):
@@ -340,9 +368,10 @@ def trunk_conv_checks(ft, vgg16, ivgg16, B, card, g) -> dict:
 
 
 def profiled_kernels(fn, log_dir: Path):
-    """[(device us, kernel name)] of the card's kernels in one call of fn,
-    largest first, from the port's ``utils/profiling.py trace`` of that
-    call (which also writes it to ``log_dir/trace.json``)."""
+    """[(device us, kernel name, launches)] of the card's kernels in one
+    call of fn, largest first, from the port's ``utils/profiling.py
+    trace`` of that call (which also writes it to
+    ``log_dir/trace.json``)."""
     from music_style_transfer_ldm_tpu_torch.utils.profiling import trace
     with trace(log_dir) as prof:
         fn()
@@ -350,10 +379,15 @@ def profiled_kernels(fn, log_dir: Path):
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue      # host-side ops; their kernels are listed apart
+        if getattr(evt, "is_user_annotation", False):
+            # a record_function range on the card's timeline (e.g.
+            # "Optimizer.step#Adam.step"): its span covers its kernels,
+            # counted apart, and the idle gaps between them
+            continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
         if dev_us > 0:
-            out.append((dev_us, evt.key))
+            out.append((dev_us, evt.key, evt.count))
     return sorted(out, reverse=True)
 
 
@@ -447,6 +481,9 @@ def main() -> int:
         AudioProcessor,
     )
     from music_style_transfer_ldm_tpu_torch.config import default_config
+    from music_style_transfer_ldm_tpu_torch.data.build_dataset import (
+        chunk_audio,
+    )
     from music_style_transfer_ldm_tpu_torch.datasets.folder import (
         load_image_unit,
     )
@@ -473,6 +510,9 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
     from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
     from music_style_transfer_ldm_tpu_torch.ops import normalized_mse as nm
+    from music_style_transfer_ldm_tpu_torch.ops._build import (
+        build_host_library,
+    )
     from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
         build_ddim_update, ddim_step_reference, ddim_update_,
         ddim_update_reference, fused_ddim_update, step_scalars,
@@ -519,7 +559,7 @@ def main() -> int:
     results: dict = {"card": smi, "kind": kind}
 
     # ---- 2. build (one nvcc per source, all at once) --------------------
-    built: dict = {"A": {}, "B": {}, "C": {}, "D": {}, "E": {}}
+    built: dict = {"A": {}, "B": {}, "C": {}, "D": {}, "E": {}, "S": {}}
 
     def nvcc_build(key, fn):
         try:
@@ -531,7 +571,8 @@ def main() -> int:
     threads = [threading.Thread(target=nvcc_build, args=a) for a in (
         ("A", fs.build_fused_sampler), ("B", build_ddim_update),
         ("C", fm.build_fused_mel_image), ("D", nm.build_normalized_mse),
-        ("E", ft.build_fused_trunk))]
+        ("E", ft.build_fused_trunk),
+        ("S", lambda: build_host_library("specpack.cc")))]
     for th in threads:
         th.start()
     for th in threads:
@@ -544,10 +585,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas ({key}):", line.strip())
     print("build: nvcc " + ", ".join(
-        f"{built[k]['seconds']:.1f} s (kernel {k})" for k in built)
-        + f" in parallel, {build_s:.1f} s in all")
-    results["build_s"] = {**{f"nvcc_{k.lower()}": built[k]["seconds"]
-                             for k in built}, "all": build_s}
+        f"{built[k]['seconds']:.1f} s (kernel {k})" for k in "ABCDE")
+        + f"; host c++ {built['S']['seconds']:.1f} s (the spec-pack reader,"
+        f" csrc/specpack.cc); in parallel, {build_s:.1f} s in all")
+    results["build_s"] = {**{f"{'cxx' if k == 'S' else 'nvcc'}_{k.lower()}":
+                             built[k]["seconds"] for k in built},
+                          "all": build_s}
 
     # ---- 3. kernels against their plain versions -----------------------
     g = torch.Generator(device=dev)
@@ -1588,6 +1631,286 @@ def main() -> int:
         "eval_metrics_s": eval_metrics_s}
     del teacher16, student16
 
+    # ---- 6d. the data path at the reference's scale ---------------------
+    # cli build-dataset on 4 instruments x one 30-minute WAV (kernel C at
+    # B = 64), the pack, the pairings, three loaders in the same order, and
+    # 20 LDM steps fed by each; data from generators of their own, so the
+    # later phases' data stay those of earlier runs
+    data_dir = work / "data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    audio_dir, imgs_dir = data_dir / "audio", data_dir / "images"
+    chunk = 3 * 22050
+    wav_gen = torch.Generator(device=dev)
+    wav_gen.manual_seed(9)
+    expected_chunks = {}
+    t0 = time.perf_counter()
+    for i, (inst, sr_w, chans) in enumerate((
+            ("cello", 22050, 1), ("guitar", 22050, 1), ("piano", 22050, 1),
+            ("violin", 44100, 2))):
+        # DATA_CONTENT_S of tones whose pitch drifts, and noise, with
+        # DATA_SILENCE_S of zeros at both ends (trim_silence trims them)
+        n = int(DATA_CONTENT_S * sr_w)
+        pad = torch.zeros(int(DATA_SILENCE_S * sr_w), chans, device=dev)
+        tt = torch.arange(n, device=dev, dtype=torch.float64) / sr_w
+        f0 = 110.0 * (i + 2)
+        drift = torch.rand(chans, 4, device=dev, generator=wav_gen,
+                           dtype=torch.float64)
+        phase = 2 * np.pi * (f0 * tt[:, None] + 3.0 * torch.sin(
+            2 * np.pi * (0.01 + 0.02 * drift[:, 0]) * tt[:, None]))
+        y = (0.3 * torch.sin(phase) + 0.15 * torch.sin(3.1 * phase
+                                                       + drift[:, 1])
+             + 0.05 * torch.randn(n, chans, device=dev, generator=wav_gen,
+                                  dtype=torch.float64))
+        y = torch.cat([pad, y.float(), pad])
+        pcm = (y.clamp(-1, 1) * 32767).to(torch.int16).cpu().numpy()
+        (audio_dir / inst).mkdir(parents=True, exist_ok=True)
+        wavfile.write(audio_dir / inst / f"{inst}_take1.wav", sr_w,
+                      np.ascontiguousarray(pcm[:, 0]) if chans == 1 else pcm)
+        # the host arithmetic: trimmed to the content (within a frame),
+        # cut into 3 s chunks at 22.05 kHz, the last zero-padded
+        expected_chunks[inst] = -(-int(DATA_CONTENT_S * 22050) // chunk)
+    wav_s = time.perf_counter() - t0
+    del y, tt, phase, pcm
+    wav_len = DATA_CONTENT_S + 2 * DATA_SILENCE_S
+    print(f"data path: wrote 4 seeded WAVs of {wav_len:.1f} s (3 x 22.05 "
+          f"kHz mono, 1 x 44.1 kHz 16-bit "
+          f"stereo; {DATA_SILENCE_S} s of silence at both ends) in "
+          f"{wav_s:.1f} s; expected chunks {expected_chunks}")
+    reset_counts()
+    t0 = time.perf_counter()
+    out_etl, _ = run_cli(cli, ["build-dataset", "--audio-dir",
+                               str(audio_dir), "--output-root",
+                               str(imgs_dir)])
+    torch.cuda.synchronize()
+    etl_s = time.perf_counter() - t0
+    etl_launches = read_counts()
+    etl_split = json.loads(next(
+        ln for ln in out_etl.splitlines()
+        if ln.startswith("ETL seconds: "))[len("ETL seconds: "):])
+    counts = {d.name: len(list(d.glob("*.png")))
+              for d in sorted(imgs_dir.iterdir())}
+    shapes = set()
+    for png_path in imgs_dir.rglob("*.png"):
+        with open(png_path, "rb") as fh:
+            head = fh.read(24)
+        shapes.add(struct.unpack(">II", head[16:24])[::-1])   # (H, W)
+    want_c = sum(-(-k // 64) for k in expected_chunks.values())
+    print(f"cli build-dataset: {sum(counts.values())} PNGs {counts}, shapes "
+          f"{shapes}, {etl_s:.2f} s wall; split (s) "
+          f"{ {k: round(v, 3) for k, v in etl_split.items()} }; launches "
+          f"{etl_launches} (kernel C expected {want_c} = sum of ceil(chunks "
+          "/ 64))")
+    check(counts == expected_chunks, f"build-dataset wrote {counts}, the "
+          f"host arithmetic predicts {expected_chunks}")
+    check(shapes == {(128, 130)}, f"PNG shapes {shapes}")
+    check(etl_launches["fused_mel_unit_image"] == want_c,
+          f"kernel C launched {etl_launches['fused_mel_unit_image']} times "
+          f"in the ETL, expected {want_c}")
+    results["launches"]["data_path_etl"] = etl_launches
+    # kernel C at the ETL's batches, B = 64 and the remainder, on the
+    # spectra of one file's chunks (held against the plain version, then
+    # timed beside the bound)
+    ap_d = AudioProcessor(device=dev)
+    file0 = sorted(audio_dir.rglob("*.wav"))[0]
+    chunks0 = torch.as_tensor(chunk_audio(ap_d.trim_silence(
+        ap_d.load_audio(file0)[0]), 22050), device=dev)
+    rem = chunks0.shape[0] % 64 or 64
+    err_c64 = {}
+    for B, sl in ((64, slice(0, 64)), (rem, slice(-rem, None))):
+        S = power_spectrum(chunks0[sl])
+        k = fm.fused_mel_unit_image(fb, S)
+        r = fm.fused_mel_unit_image_reference(fb, S)
+        torch.cuda.synchronize()
+        d = (k - r).abs()
+        err_c64[B] = {"max_abs": d.max().item(),
+                      "flips": (d > 0.5 / 255.0).float().mean().item(),
+                      "off_grid": (k * 255.0 - torch.round(k * 255.0)
+                                   ).abs().max().item()}
+        print(f"kernel C vs plain at the ETL's batch [{B},1025,130] (real "
+              f"chunks of {file0.name}): {err_c64[B]} (tol "
+              f"{TOL_KERNEL_C:.6g}, flips {TOL_KERNEL_C_FLIPS}, grid "
+              f"{TOL_GRID})")
+        check(err_c64[B]["max_abs"] <= TOL_KERNEL_C
+              and err_c64[B]["flips"] <= TOL_KERNEL_C_FLIPS
+              and err_c64[B]["off_grid"] <= TOL_GRID,
+              f"kernel C disagrees with its plain version at B={B}")
+    S64 = power_spectrum(chunks0[:64])
+    c64 = {"ms": cuda_ms(lambda: fm.fused_mel_unit_image(fb, S64), 50),
+           "plain_ms": cuda_ms(
+               lambda: fm.fused_mel_unit_image_reference(fb, S64), 20),
+           "launches_etl": etl_launches["fused_mel_unit_image"],
+           "err_vs_plain": err_c64}
+    band64 = fm.mel_image_band_cost(fb, 130, 64)
+    bound64 = {"operations": band64["flops"] / H100_F32_FLOPS,
+               "bytes": band64["bytes"] / H100_BYTES}
+    c64["bound_ms"] = 1e3 * max(bound64.values())
+    c64["bound_by"] = max(bound64, key=bound64.get)
+    print(f"time {card} kernel C [64,1025,130] f32 (the ETL's batch): "
+          f"{c64['ms'] * 1e3:.1f} us/launch back to back (CUDA events; "
+          f"device-bound at this batch); plain version "
+          f"{c64['plain_ms'] * 1e3:.1f} us; bound "
+          f"{c64['bound_ms'] * 1e3:.3f} us ({c64['bound_by']}; "
+          f"band-limited {band64['flops'] / 1e6:.2f} MFLOP, "
+          f"{band64['bytes'] / 1e6:.3f} MB at 3.35 TB/s)")
+    del chunks0, S64
+
+    # the pack, the pairings
+    from music_style_transfer_ldm_tpu_torch.datasets import packed as pk
+    spk = data_dir / "corpus.spk"
+    t0 = time.perf_counter()
+    check(pk.main(["--pack", str(imgs_dir), str(spk)]) == 0, "packing")
+    pack_s = time.perf_counter() - t0
+    nat = pk.PackedSpectrogramDataset(spk)
+    ref = pk.PackedSpectrogramDataset(spk, use_native=False)
+    check(nat.native, "the native spec-pack reader did not open the pack")
+    idx = np.random.RandomState(10).randint(0, len(nat), 1024)
+    same = {}
+    for dtype in ("uint8", "float32"):
+        (xn, yn), (xr, yr) = (nat.gather(idx, dtype=dtype),
+                              ref.gather(idx, dtype=dtype))
+        same[dtype] = bool(np.array_equal(xn, xr) and np.array_equal(yn, yr))
+    print(f"pack: {len(nat)} items, {spk.stat().st_size / 1e6:.1f} MB, "
+          f"{pack_s:.2f} s (python -m ...datasets.packed --pack); reader "
+          f"{'native' if nat.native else 'numpy'} (csrc/specpack.cc); native "
+          f"vs numpy gathers of 1,024 seeded indices bit-equal {same}")
+    check(all(same.values()), "the native and numpy readers disagree")
+    nat.close()
+    pairs_csv = data_dir / "pairs.csv"
+    run_cli(cli, ["generate-pairings", "--root", str(imgs_dir), "--output",
+                  str(pairs_csv), "--num-pairs", "15000"])
+
+    # three loaders over the first 20 batches of the seed-0 epoch
+    from music_style_transfer_ldm_tpu_torch.datasets import (
+        BatchLoader, DevicePairLoader, DeviceResidentPairs,
+        PackedBatchLoader, PackedPairDataset, SpectrogramPairDataset,
+    )
+    from music_style_transfer_ldm_tpu_torch.training.state import (
+        as_unit_images, to_device,
+    )
+    order = np.random.RandomState(0).permutation(15000)[:20 * 128]
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    resident = DeviceResidentPairs(spk, pairs_csv)
+    corpus_mib = resident.nbytes / 2**20
+    print(f"DeviceResidentPairs: {tuple(resident.images.shape)} uint8 on "
+          f"the card, {resident.nbytes} B ({corpus_mib:.1f} MiB; allocated "
+          f"{(torch.cuda.memory_allocated() - base_mem) / 2**20:.1f} MiB)")
+    names = ("png", "packed", "device")
+
+    def loader(name, ids):
+        if name == "png":
+            return BatchLoader(SpectrogramPairDataset(imgs_dir, pairs_csv),
+                               128, indices=ids, shuffle=False)
+        if name == "packed":
+            return PackedBatchLoader(PackedPairDataset(spk, pairs_csv), 128,
+                                     indices=ids, shuffle=False,
+                                     dtype="uint8")
+        return DevicePairLoader(resident, 128, indices=ids, shuffle=False)
+
+    diffs = []
+    for batches in zip(*(loader(name, order) for name in names)):
+        seen = [(as_unit_images(to_device(c, dev)),
+                 as_unit_images(to_device(s, dev)), list(lc), list(ls))
+                for (c, lc), (s, ls) in batches]
+        for other in seen[1:]:
+            diffs.append(max((other[0] - seen[0][0]).abs().max().item(),
+                             (other[1] - seen[0][1]).abs().max().item()))
+            check(other[2:] == seen[0][2:], "the loaders' labels differ")
+    table = as_unit_images(torch.arange(256, device=dev).to(torch.uint8))
+    scalar_div = torch.arange(256, device=dev).float() / 255.0
+    print(f"three loaders (BatchLoader over PNGs, PackedBatchLoader uint8, "
+          f"DevicePairLoader), first {len(diffs) // 2} batches of B=128: max "
+          f"abs difference after as_unit_images {max(diffs)} (must be 0); "
+          f"on the card k / 255.0 by a Python number differs from the "
+          f"k / 255 table at {(table != scalar_div).sum().item()} of 256 k")
+    check(len(diffs) == 40 and max(diffs) == 0.0,
+          "the three loaders' batches differ")
+
+    data_times = {"corpus_mib": corpus_mib, "etl_s": etl_s,
+                  "etl_split_s": etl_split, "pack_s": pack_s,
+                  "kernel_c_b64": c64, "loader_ms": {}, "step": {}}
+    for name in names:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_b = sum(1 for _ in loader(name, order))
+        torch.cuda.synchronize()
+        data_times["loader_ms"][name] = 1e3 * (time.perf_counter() - t0) / n_b
+    # the card's share of a DevicePairLoader batch: its two index_selects
+    items = torch.randint(0, len(resident.images), (2, 128), device=dev,
+                          generator=g)
+    data_times["device_gather_card_us"] = device_us(
+        lambda: (torch.index_select(resident.images, 0, items[0]),
+                 torch.index_select(resident.images, 0, items[1])))
+    print(f"time {card} loaders alone, ms per batch of 128 pairs over 20 "
+          f"batches (host clock, ending in a synchronise): "
+          f"{ {k: round(v, 3) for k, v in data_times['loader_ms'].items()} }"
+          f"; DevicePairLoader's two index_selects "
+          f"{data_times['device_gather_card_us']:.2f} us of card time per "
+          "batch (CUDA events, queued)")
+    # the corpus leaves the card until the device-fed steps, so that each
+    # loader's peak memory holds only what that loader keeps there
+    del resident, items
+
+    # 20 LDM steps at B=128, bf16, the defaults, fed by each loader
+    trainer_d = LDMTrainer(default_config())
+    state_d, _ = trainer_d.train_epoch(trainer_d.init_state(0), loader(
+        "packed", order[:256]))                    # warm-up, 2 steps
+    reset_counts()
+    for name in names:
+        torch.cuda.synchronize()
+        if name == "device":
+            resident = DeviceResidentPairs(spk, pairs_csv)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state_d, m_d = trainer_d.train_epoch(state_d, loader(name, order))
+        torch.cuda.synchronize()
+        r = data_times["step"][name] = {
+            "ms": 1e3 * (time.perf_counter() - t0) / 20,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "metrics": m_d}
+        check(all(np.isfinite(v) for v in m_d.values()),
+              f"a non-finite loss fed by the {name} loader")
+        box_d = [state_d]
+
+        def five_steps(name=name):
+            box_d[0], _ = trainer_d.train_epoch(box_d[0],
+                                                loader(name, order[:640]))
+        d_launched = nm.normalized_mse_forward.launches
+        d_kernels = profiled_kernels(five_steps,
+                                     work / "profile" / f"data_{name}")
+        # the profile's coverage: kernel D's launches it saw of those made
+        r["profile_saw_d"] = [
+            sum(n for _, k, n in d_kernels if "nm_forward_kernel" in k),
+            nm.normalized_mse_forward.launches - d_launched]
+        state_d = box_d[0]
+        r["device_ms"] = sum(us for us, *_ in d_kernels) / 1e3 / 5
+        r["idle_share"] = 1.0 - r["device_ms"] / r["ms"]
+        r["top_kernels_ms"] = [(k, us / 1e3 / 5)
+                               for us, k, _ in d_kernels[:6]]
+        print(f"time {card} LDM step B=128 bf16 fed by {name}: {r['ms']:.1f}"
+              f" ms/step (host clock over 20 steps, train_epoch, ending in a"
+              f" synchronise), device {r['device_ms']:.2f} ms/step "
+              f"(torch.profiler over 5; it saw {r['profile_saw_d'][0]} of "
+              f"{r['profile_saw_d'][1]} kernel D launches), idle share "
+              f"{r['idle_share']:.3f}, peak memory {r['peak_mib']:.0f} MiB "
+              f"(+{r['peak_mib'] - data_times['step']['png']['peak_mib']:.1f}"
+              f" over the PNG-fed step); epoch metrics "
+              f"{ {k: round(v, 5) for k, v in m_d.items()} }; top device "
+              f"entries (ms/step) "
+              f"{[(k[:50], round(v, 3)) for k, v in r['top_kernels_ms']]}")
+    step_launches = read_counts()
+    print(f"data path, 75 LDM steps (60 timed, 15 profiled): launches "
+          f"{step_launches}")
+    for fn in (nm.normalized_mse_forward, ft.fused_trunk):
+        check(step_launches[fn.__name__] > 0,
+              f"{fn.__name__} never ran in the loaders' LDM steps")
+    results["launches"]["data_path_steps"] = step_launches
+    results["max_abs_err"]["data_path"] = {"kernel_c_etl_batches": err_c64,
+                                           "loaders": max(diffs)}
+    results["data_path"] = data_times
+    del resident, trainer_d, state_d, box_d
+    shutil.rmtree(audio_dir, ignore_errors=True)
+
     # ---- 7. times -------------------------------------------------------
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
@@ -1662,8 +1985,7 @@ def main() -> int:
         r = times["kernel_b_detail"][eps_type] = {
             "back_to_back_us": 1e3 * cuda_ms(
                 lambda: ddim_update_(xw, ee, sc49), 200),
-            "device_us": device_us(lambda: ddim_update_(xw, ee, sc49),
-                                   "ddim_update"),
+            "device_us": device_us(lambda: ddim_update_(xw, ee, sc49)),
             "host_us": host_us(lambda: ddim_update_(xw, ee, sc49)),
             "plain_us": 1e3 * cuda_ms(
                 lambda: ddim_step_reference(xw, ee, sc49), 200),
@@ -1672,7 +1994,7 @@ def main() -> int:
         print(f"time {card} kernel B [8,16,16,32] ddim_update_ (in place, "
               f"the sampler's entry), eps {eps_type}: "
               f"{r['back_to_back_us']:.2f} us/launch back to back, device "
-              f"{r['device_us']:.3f} us per launch (torch.profiler), host "
+              f"{r['device_us']:.3f} us per launch (CUDA events, queued), host "
               f"{r['host_us']:.2f} us per call (1,000 calls, no sync); plain "
               f"version {r['plain_us']:.2f} us, bound {r['bound_us']:.3f} us "
               f"(bytes)")
@@ -1711,7 +2033,7 @@ def main() -> int:
         times.setdefault("dense_bound_c_ms", {})[B] = 1e3 * max(
             cost["flops"] / H100_F32_FLOPS, cost["bytes"] / H100_BYTES)
         times.setdefault("kernel_c_device_us", {})[B] = device_us(
-            lambda: fm.fused_mel_unit_image(fb, S), "mel_unit_image")
+            lambda: fm.fused_mel_unit_image(fb, S))
         times.setdefault("kernel_c_host_us", {})[B] = host_us(
             lambda: fm.fused_mel_unit_image(fb, S))
         chunks = 0.3 * torch.randn(B, 66150, device=dev, generator=g)
@@ -1720,7 +2042,8 @@ def main() -> int:
         print(f"time {card} kernel C [{B},1025,130] f32: "
               f"{times['kernel_c_ms'][B] * 1e3:.1f} us/launch back to back, "
               f"device {times['kernel_c_device_us'][B]:.2f} us per launch "
-              f"(torch.profiler), host {times['kernel_c_host_us'][B]:.2f} us "
+              f"(CUDA events, queued), host "
+              f"{times['kernel_c_host_us'][B]:.2f} us "
               f"per call (1,000 calls, no sync); plain version "
               f"{times['plain_c_ms'][B] * 1e3:.1f} us, bound "
               f"{times['bound_c_ms'][B] * 1e3:.3f} us ({bound_c_by}; "
@@ -1885,7 +2208,7 @@ def main() -> int:
                                      "nm_backward_kernel")}
     by_group: dict = {}
     device_total = 0.0
-    for dev_us, key in kernels_us:
+    for dev_us, key, _ in kernels_us:
         device_total += dev_us
         name = next((gname for gname, keys in groups.items()
                      if any(k in key for k in keys)), "other")
@@ -1894,12 +2217,12 @@ def main() -> int:
           f"{device_total / 1e3:.2f} ms; by group (ms) "
           f"{ {k: round(v / 1e3, 2) for k, v in by_group.items()} }; top "
           f"kernels (ms) "
-          f"{[(k[:60], round(v / 1e3, 2)) for v, k in kernels_us[:8]]}")
+          f"{[(k[:60], round(v / 1e3, 2)) for v, k, _ in kernels_us[:8]]}")
     times["train_step_profile"] = {"device_ms": device_total / 1e3,
                                    "groups_ms": {k: v / 1e3 for k, v in
                                                  by_group.items()},
                                    "top_kernels_ms": [
-                                       (k, v / 1e3) for v, k in
+                                       (k, v / 1e3) for v, k, _ in
                                        kernels_us[:12]]}
     # the distill step at B=128, bf16, factor 2 (the default cascade's
     # first stage, 96 -> 48), unguided and guided (a doubled-batch teacher
@@ -1928,9 +2251,9 @@ def main() -> int:
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         d_kernels = profiled_kernels(distill_step,
                                      work / "profile" / f"distill_{tag}")
-        r["device_ms"] = sum(us for us, _ in d_kernels) / 1e3
+        r["device_ms"] = sum(us for us, *_ in d_kernels) / 1e3
         r["idle_share"] = 1.0 - r["device_ms"] / r["ms"]
-        r["top_kernels_ms"] = [(k, us / 1e3) for us, k in d_kernels[:6]]
+        r["top_kernels_ms"] = [(k, us / 1e3) for us, k, _ in d_kernels[:6]]
         print(f"time {card} distill step B=128 bf16 factor 2 ({tag}): "
               f"{r['ms']:.1f} ms/step (host clock over 5 steps), device "
               f"{r['device_ms']:.2f} ms (torch.profiler), idle share "
@@ -1966,9 +2289,9 @@ def main() -> int:
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         ae_kernels = profiled_kernels(ae_step,
                                       work / "profile" / f"ae_step_{kind_ae}")
-        r["device_ms"] = sum(us for us, _ in ae_kernels) / 1e3
+        r["device_ms"] = sum(us for us, *_ in ae_kernels) / 1e3
         r["idle_share"] = 1.0 - r["device_ms"] / r["ms"]
-        r["top_kernels_ms"] = [(k, us / 1e3) for us, k in ae_kernels[:6]]
+        r["top_kernels_ms"] = [(k, us / 1e3) for us, k, _ in ae_kernels[:6]]
         print(f"time {card} AE step B=128 f32 ({kind_ae} compression): "
               f"{r['ms']:.1f} ms/step (host clock, mean of 5; p95 "
               f"{r['p95_ms']:.1f}), device "
@@ -2069,7 +2392,7 @@ def main() -> int:
          "max_abs_err": err_c, "ms": times["kernel_c_ms"][1],
          "plain_ms": times["plain_c_ms"][1],
          "bound_ms": times["bound_c_ms"][1], "bound_by": times["bound_c_by"][1],
-         "library_ms": None},
+         "library_ms": None, "etl_b64": results["data_path"]["kernel_c_b64"]},
         {"name": "normalized_mse", "route": "cuda",
          "source": "music_style_transfer_ldm_tpu_torch/csrc/normalized_mse.cu",
          "replaces": "music_style_transfer_ldm_tpu/ops/pallas/"

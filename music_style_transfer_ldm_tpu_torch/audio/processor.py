@@ -19,11 +19,18 @@ import torch
 from music_style_transfer_ldm_tpu_torch.audio import io as audio_io
 from music_style_transfer_ldm_tpu_torch.audio import mel as _mel
 from music_style_transfer_ldm_tpu_torch.audio import quantize as _quant
-from music_style_transfer_ldm_tpu_torch.audio.griffinlim import mel_to_audio
+from music_style_transfer_ldm_tpu_torch.audio import stft as _stft
+from music_style_transfer_ldm_tpu_torch.audio.griffinlim import (
+    griffin_lim, mel_to_audio,
+)
 from music_style_transfer_ldm_tpu_torch.ops.fused_mel_image import (
     fused_mel_unit_image,
 )
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
+from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
+
+# Frames per block of trim_silence's power sums (32 MB of float32 frames).
+TRIM_BLOCK_FRAMES = 4096
 
 
 class AudioProcessor:
@@ -50,16 +57,19 @@ class AudioProcessor:
                      frame_length: int = 2048, hop_length: int = 512
                      ) -> np.ndarray:
         """Trim leading and trailing frames more than ``top_db`` below the
-        loudest (librosa.effects.trim)."""
+        loudest (librosa.effects.trim).  Frames' mean powers are taken
+        TRIM_BLOCK_FRAMES frames at a time, so memory stays bounded on long
+        files (a frame's mean does not depend on its block)."""
         y = np.asarray(audio, np.float32)
         if y.size == 0:
             return y
         pad = frame_length // 2
         yp = np.pad(y, (pad, pad))
-        nf = 1 + (len(yp) - frame_length) // hop_length
-        idx = (np.arange(nf)[:, None] * hop_length
-               + np.arange(frame_length)[None, :])
-        power = np.mean(yp[idx] ** 2, axis=1)  # rms**2 per frame
+        frames = np.lib.stride_tricks.sliding_window_view(
+            yp, frame_length)[::hop_length]
+        power = np.concatenate([
+            np.mean(frames[b:b + TRIM_BLOCK_FRAMES] ** 2, axis=1)  # rms**2
+            for b in range(0, len(frames), TRIM_BLOCK_FRAMES)])
         ref = max(power.max(), 1e-10)
         db = 10.0 * np.log10(np.maximum(power, 1e-10) / ref)
         nonsilent = np.flatnonzero(db > -top_db)
@@ -68,6 +78,17 @@ class AudioProcessor:
         start = int(nonsilent[0]) * hop_length
         end = min(len(y), (int(nonsilent[-1]) + 1) * hop_length)
         return y[start:end]
+
+    def normalize_audio(self, audio, peak: float = 1.0) -> np.ndarray:
+        """Peak-normalise to ``peak`` (silence passes unchanged)."""
+        audio = np.asarray(audio, np.float32)
+        m = float(np.max(np.abs(audio))) if audio.size else 0.0
+        return audio if m == 0.0 else audio * (peak / m)
+
+    def get_raw_image_bytes(self, image) -> bytes:
+        """A uint8 [H, W] image (or anything numpy reads as one) as PNG
+        bytes, written by ``utils/png.py``."""
+        return write_png_gray(np.asarray(image, np.uint8))
 
     # ---------------- device side (batched) -----------------------------
 
@@ -93,6 +114,52 @@ class AudioProcessor:
             y, sr=sr or self.target_sr, n_fft=self.n_fft,
             hop_length=self.hop_length, n_mels=n_mels)
         return _mel.power_to_db(mel_power, batched=y.ndim > 1)
+
+    get_mel_spectogram = get_mel_spectrogram   # the reference's spelling
+
+    def mel_spectrogram_to_grayscale_image(self, spectrogram,
+                                           max_db: float = 80.0
+                                           ) -> np.ndarray:
+        """dB [..., n_mels, F] -> uint8 numpy image (the image codec)."""
+        return _quant.db_to_uint8_image(self._as_device(spectrogram),
+                                        max_db).cpu().numpy()
+
+    mel_spectogram_to_grayscale_image = mel_spectrogram_to_grayscale_image
+
+    def get_spectrogram(self, audio) -> torch.Tensor:
+        """Linear-frequency dB spectrogram with per-item ref=max:
+        [..., T] -> [..., 1 + n_fft//2, F]."""
+        y = self._as_device(audio)
+        mag = torch.abs(_stft.stft(y, n_fft=self.n_fft,
+                                   hop_length=self.hop_length))
+        return _mel.amplitude_to_db(mag, batched=y.ndim > 1)
+
+    get_spectogram = get_spectrogram
+
+    def spectrogram_to_grayscale_image(self, spectrogram,
+                                       max_db: float = 80.0) -> np.ndarray:
+        """Linear-spectrogram dB -> uint8 numpy image."""
+        return self.mel_spectrogram_to_grayscale_image(spectrogram, max_db)
+
+    spectogram_to_grayscale_image = spectrogram_to_grayscale_image
+
+    def grayscale_spectrogram_image_to_audio(
+            self, image, max_db: float = 80.0, n_iter: int = 32,
+            hop_length: int | None = None, win_length: int | None = None,
+            length: int | None = None, init_phase=None) -> torch.Tensor:
+        """uint8 linear-spectrogram image -> dB -> magnitudes ->
+        Griffin-Lim audio on the device; ``init_phase`` (real angles, the
+        image's shape) seeds Griffin-Lim, else seed-0 random phases."""
+        img = self._as_device(image, torch.uint8)
+        amp = _mel.db_to_amplitude(_quant.uint8_image_to_db(img, max_db))
+        if init_phase is not None:
+            init_phase = self._as_device(init_phase)
+        return griffin_lim(amp, n_iter=n_iter,
+                           hop_length=hop_length or self.hop_length,
+                           win_length=win_length, length=length,
+                           init_phase=init_phase)
+
+    grayscale_spectogram_image_to_audio = grayscale_spectrogram_image_to_audio
 
     def waveform_batch_to_unit_images(self, chunks, n_mels: int = 128,
                                       max_db: float = 80.0) -> torch.Tensor:
@@ -133,6 +200,59 @@ class AudioProcessor:
                             n_fft=self.n_fft, hop_length=self.hop_length,
                             n_iter=n_iter, nnls_iters=self.nnls_iters,
                             length=length, init_phase=init_phase)
+
+    grayscale_mel_spectogram_image_to_audio = (
+        grayscale_mel_spectrogram_image_to_audio)
+
+    # ---------------- plots (matplotlib, where installed) ----------------
+
+    def plot_audio(self, audio, sr: int | None = None, out_path=None) -> None:
+        """Waveform plot, saved to ``out_path`` when given, else shown."""
+        plt = _pyplot(out_path)
+        sr = sr or self.target_sr
+        audio = np.asarray(audio)
+        t = np.linspace(0, len(audio) / sr, num=len(audio))
+        plt.figure(figsize=(14, 5))
+        plt.plot(t, audio)
+        plt.title("Audio Waveform")
+        plt.xlabel("Time (seconds)")
+        plt.ylabel("Amplitude")
+        _finish_plot(plt, out_path)
+
+    def plot_mel_spectrogram(self, mel_db, out_path=None) -> None:
+        """Log-mel heatmap, saved to ``out_path`` when given, else shown."""
+        plt = _pyplot(out_path)
+        mel_db = np.asarray(mel_db.cpu() if isinstance(mel_db, torch.Tensor)
+                            else mel_db)
+        plt.figure(figsize=(14, 5))
+        plt.imshow(mel_db, origin="lower", aspect="auto", cmap="magma")
+        plt.colorbar(format="%+2.0f dB")
+        plt.title("Mel spectrogram")
+        plt.xlabel("Frame")
+        plt.ylabel("Mel bin")
+        _finish_plot(plt, out_path)
+
+
+def _pyplot(out_path):
+    """matplotlib.pyplot (the Agg backend when saving to a file)."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise RuntimeError("plotting needs matplotlib, which is not "
+                           "installed") from e
+    if out_path:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def _finish_plot(plt, out_path) -> None:
+    plt.tight_layout()
+    if out_path:
+        plt.savefig(out_path)
+        plt.close()
+    else:
+        plt.show()
 
 
 def crossfade_stitch(chunks: np.ndarray, hop_samples: int) -> np.ndarray:

@@ -1,5 +1,8 @@
 """Command-line interface of the port.
 
+  python -m music_style_transfer_ldm_tpu_torch.cli download --csv urls.csv
+  python -m music_style_transfer_ldm_tpu_torch.cli build-dataset \\
+      --audio-dir downloads --output-root processed_images
   python -m music_style_transfer_ldm_tpu_torch.cli transfer \\
       --checkpoint ckpt.pt --content c.wav --style s.png
   python -m music_style_transfer_ldm_tpu_torch.cli generate \\
@@ -19,7 +22,10 @@
       --pairing-file pairs.csv --out-dir runs/distill
   python -m music_style_transfer_ldm_tpu_torch.cli diagnose --checkpoint ckpt.pt
 
-Checkpoints are the port's own format (``training/checkpoint.py``).
+``download`` fetches audio with yt-dlp (optional; not on the card's
+machine); ``build-dataset`` turns it into the PNG tree (or, with
+``--parquet``, a parquet file; needs pandas) that ``generate-pairings``
+and ``train`` read.  Checkpoints are the port's own format (``training/checkpoint.py``).
 ``train --model autoencoder`` writes ``pretrained.pt`` (the best
 validation loss), which ``train --model ldm --pretrained-ae`` loads and
 freezes; ``train --model ldm`` writes ``ldm_final.pt``, which
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -50,7 +57,10 @@ from music_style_transfer_ldm_tpu_torch.audio.quantize import (
 )
 from music_style_transfer_ldm_tpu_torch.audio.stft import stft_np
 from music_style_transfer_ldm_tpu_torch.config import default_config
-from music_style_transfer_ldm_tpu_torch.data.build_dataset import chunk_audio
+from music_style_transfer_ldm_tpu_torch.data.build_dataset import (
+    build_dataset_df, build_dataset_folder_structure, chunk_audio,
+)
+from music_style_transfer_ldm_tpu_torch.data.downloader import AudioDownloader
 from music_style_transfer_ldm_tpu_torch.datasets.folder import (
     SpectrogramPairDataset, generate_pairings, load_image_unit,
 )
@@ -371,6 +381,42 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_download(args) -> int:
+    dl = AudioDownloader(output_dir=args.output_dir)
+    if args.csv:
+        dl.download_from_csv(args.csv)
+    elif args.file:
+        dl.download_from_file(args.file)
+    elif args.url:
+        dl.download_audio(args.url, instrument=args.instrument or "")
+        dl.report_failures()
+    else:
+        print("one of --csv/--file/--url is required", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_build_dataset(args) -> int:
+    """Audio -> the PNG tree (kernel C on the card, 64 chunks a batch),
+    or with --parquet a parquet file of PNG bytes; prints the seconds of
+    each stage."""
+    if args.parquet:
+        df = build_dataset_df(args.audio_dir, save_path=args.parquet,
+                              chunk_size_sec=args.chunk_sec,
+                              max_duration=args.max_duration,
+                              n_mels=args.n_mels, device=args.device)
+        print(f"wrote {len(df)} rows to {args.parquet}")
+        return 0
+    timings: dict = {}
+    n = build_dataset_folder_structure(
+        args.audio_dir, args.output_root, chunk_size_sec=args.chunk_sec,
+        max_duration=args.max_duration, n_mels=args.n_mels,
+        device=args.device, timings=timings)
+    print(f"wrote {n} images under {args.output_root}")
+    print(f"ETL seconds: {json.dumps(timings)}", flush=True)
+    return 0
+
+
 def cmd_generate_pairings(args) -> int:
     generate_pairings(args.root, args.output, num_pairs=args.num_pairs,
                       seed=args.seed)
@@ -649,6 +695,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "the current largest")
     _common(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    d = sub.add_parser("download", help="download audio via yt-dlp")
+    d.add_argument("--csv")
+    d.add_argument("--file")
+    d.add_argument("--url")
+    d.add_argument("--instrument")
+    d.add_argument("--output-dir", default="downloads")
+    d.set_defaults(fn=cmd_download)
+
+    b = sub.add_parser("build-dataset", help="audio -> spectrogram images")
+    b.add_argument("--audio-dir", default="downloads")
+    b.add_argument("--output-root", default="processed_images")
+    b.add_argument("--parquet", help="write parquet instead of PNG tree")
+    b.add_argument("--chunk-sec", type=float, default=3.0)
+    b.add_argument("--max-duration", type=float, default=1800.0)
+    b.add_argument("--n-mels", type=int, default=128)
+    b.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs kernel C's plain "
+                        "PyTorch version (tests)")
+    b.set_defaults(fn=cmd_build_dataset)
 
     g = sub.add_parser("generate-pairings", help="deterministic pair CSV")
     g.add_argument("--root", default="processed_images")

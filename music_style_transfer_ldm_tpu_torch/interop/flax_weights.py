@@ -45,9 +45,13 @@ def _conv_to_flax(w: np.ndarray, transpose: bool) -> np.ndarray:
 
 
 def _layers(ldm) -> Iterator[Tuple[str, str, nn.Module]]:
-    """(component, flax name, torch module) for every parameterised layer."""
+    """(component, flax name, torch module) for every parameterised layer
+    of the components that ``ldm`` has (the LDM's four, or the
+    autoencoder trainer's encoder and decoder)."""
     for comp in ("encoder", "decoder", "unet", "style_encoder"):
-        module = getattr(ldm, comp)
+        module = getattr(ldm, comp, None)
+        if module is None:
+            continue
         for name, child in module.named_children():
             if isinstance(child, (nn.Conv2d, nn.ConvTranspose2d,
                                   nn.BatchNorm2d, nn.Linear)):
@@ -72,7 +76,8 @@ def _set(tree: Dict[str, Any], path: str, value: Dict[str, Any]) -> None:
 
 @torch.no_grad()
 def load_flax_variables(ldm, variables: Dict[str, Any]) -> None:
-    """Fill ``ldm`` (the port's LDM) in place from flax variables."""
+    """Fill ``ldm`` (the port's LDM, or a module with its ``encoder`` and
+    ``decoder``) in place from flax variables."""
     params, stats = variables["params"], variables.get("batch_stats", {})
 
     def put(t: torch.Tensor, a) -> None:

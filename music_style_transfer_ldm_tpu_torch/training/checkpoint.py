@@ -27,8 +27,8 @@ Two more kinds of file, each with ``format_version``:
   --compression-features``): ``{"kind": "vggish"|"lpips", "params":
   state_dict}`` of ``losses/vggish.py``'s or ``losses/lpips.py``'s module.
 
-The JAX package's orbax checkpoints are not readable here: that needs
-JAX, and waits for an offline converter.
+The JAX package's orbax checkpoints are read where JAX is installed, by
+``tools/convert_jax_checkpoint.py``, which writes these formats.
 """
 
 from __future__ import annotations
@@ -85,8 +85,8 @@ def _load(path: str | Path, key: str) -> dict:
     payload = torch.load(Path(path), map_location="cpu", weights_only=True)
     if not isinstance(payload, dict) or key not in payload:
         raise ValueError(f"{path} is not a checkpoint of the port (no "
-                         f"{key!r}); orbax checkpoints of the JAX package "
-                         "are not readable yet")
+                         f"{key!r}); convert an orbax checkpoint of the JAX "
+                         "package with tools/convert_jax_checkpoint.py")
     _check_version(payload, path)
     return payload
 

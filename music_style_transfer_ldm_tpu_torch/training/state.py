@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
 from typing import Callable, Dict, Iterable, Optional
 
@@ -48,10 +49,20 @@ def count_params(module: nn.Module) -> int:
     return int(sum(p.numel() for p in module.parameters()))
 
 
+@functools.lru_cache(maxsize=8)
+def _unit_table(device: torch.device) -> torch.Tensor:
+    """float32 k / 255 for k = 0..255, divided on the host and kept on
+    ``device``."""
+    return (torch.arange(256, dtype=torch.float32) / 255.0).to(device)
+
+
 def as_unit_images(x: torch.Tensor) -> torch.Tensor:
-    """uint8 batches become unit floats (x / 255); float batches pass."""
+    """uint8 batches become unit floats, each value k / 255 correctly
+    rounded, bit for bit what the host loaders' float32 division gives
+    (a table: on the card, dividing by a Python number multiplies by its
+    reciprocal, which is one ulp off for some k); float batches pass."""
     if not x.is_floating_point():
-        return x.float() / 255.0
+        return _unit_table(x.device)[x.long()]
     return x
 
 
@@ -69,10 +80,17 @@ def prefetch_to_device(batches: Iterable, place_fn: Callable,
         yield buf.popleft()
 
 
-def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: through pinned memory with a
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A batch on ``device``: a tensor already there passes untouched; a
+    host array (or CPU tensor) goes through pinned memory with a
     non-blocking copy to a card."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cuda":
+    if isinstance(x, torch.Tensor):
+        if x.device.type == device.type and device.index in (
+                None, x.device.index):
+            return x
+        t = x
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
