@@ -81,6 +81,22 @@ Phases, in order; any failure exits non-zero:
      on the card after ``as_unit_images``, each timed alone, then 20 LDM
      steps (B=128, bf16, defaults) fed by each (host clock, device time,
      idle share, peak memory), with the launch counts read around them;
+  6e. the data-parallel path (``parallel/``): (i) two ranks of this
+     script on the one card over gloo with CUDA tensors: f32 LDM, AE and
+     distill steps (TF32 off) on a global batch of 8 with 7 real rows,
+     each against the one-process step on the 7 rows (losses,
+     gradients, BatchNorm statistics; the AE with LPIPS and KL, each
+     alone and neither), garbage in the pad row, kernel D and E
+     launches per rank; (ii) 20 bf16 LDM steps at the defaults,
+     global B=128 as 2 x 64, fed by ``DevicePairLoader(mesh=)`` (host
+     clock, kernel time, idle share, bytes all-reduced, peak memory per
+     rank); (iii) ``python -m torch.distributed.run --nproc-per-node 1
+     -m ...cli train --model ldm`` on nccl (2 steps at B=128), and the
+     data-parallel machinery at world size 1 against the plain trainer;
+     (iv) the engine over two replicas on the one card against the
+     single-replica scan engine (f32, cuDNN deterministic; images, and
+     audio at the replicas' own batch), with kernel B and C launches and
+     the latency of each bucket;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
@@ -111,6 +127,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import shutil
 import struct
 import subprocess
@@ -459,10 +476,324 @@ def write_reference_weights(out: Path, seed: int) -> dict:
     return paths
 
 
+# ---- phase 6e's ranks: this script started again, one process per rank ----
+TOL_DP_LOSS = 1e-5       # relative: the ranks' global losses vs one process
+TOL_DP_GRAD = 1e-4       # of each parameter's max |grad| (grad_err_of_max)
+TOL_DP_STATS = 1e-5      # relative to the largest running statistic
+TOL_DP_GARBAGE = 1e-6    # relative: garbage in the pad rows, per metric
+TOL_DP_SERVE = 1e-4      # f32 images and audio: the meshed engine vs one
+                         # replica (the audio at the replicas' batch)
+# The AE's encoder gradients with the KL term on, of max (per parameter,
+# as grad_err_of_max): the KL term's z / (z^2 + 1e-8) turns the forward's
+# rounding into 1.15e-2 here, LPIPS alone into 4.1e-6 (PERF.md section
+# 2). Every other AE gradient is held at TOL_DP_GRAD.
+TOL_AE_KL_ENCODER = 3e-2
+
+
+def dp_counted():
+    """The kernel wrappers whose launches the script counts."""
+    from music_style_transfer_ldm_tpu_torch.ops import fused_mel_image as fm
+    from music_style_transfer_ldm_tpu_torch.ops import fused_sampler as fs
+    from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
+    from music_style_transfer_ldm_tpu_torch.ops import normalized_mse as nm
+    from music_style_transfer_ldm_tpu_torch.ops.ddim_update import (
+        fused_ddim_update,
+    )
+    return (fs.fused_ddim_sample, fused_ddim_update, fm.fused_mel_unit_image,
+            nm.normalized_mse_forward, nm.normalized_mse_backward,
+            ft.fused_trunk)
+
+
+def dp_f32_config():
+    from music_style_transfer_ldm_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg.train = dataclasses.replace(cfg.train, compute_dtype="float32")
+    return cfg
+
+
+def dp_ae_cases(cfg) -> tuple:
+    """The AE steps of 6e (i): the defaults (LPIPS and the KL term), each
+    of the two terms alone, and neither, to show which term carries the
+    defaults' gradient spread between 2 ranks and one process."""
+    def with_kl(kl):
+        c = dataclasses.replace(cfg)
+        c.train = dataclasses.replace(cfg.train, kl_weight=kl)
+        return c
+    return (("ae", cfg, True), ("ae_no_kl", with_kl(0.0), True),
+            ("ae_no_lpips", cfg, False), ("ae_plain", with_kl(0.0), False))
+
+
+AE_CASES = ("ae", "ae_no_kl", "ae_no_lpips", "ae_plain")
+
+
+def dp_grad_of_max_by_part(got: dict, want: dict) -> dict:
+    """grad_err_of_max per component (the first name part: encoder,
+    decoder), the parameters skipped by the whole model's largest
+    gradient as there."""
+    top = max(v.abs().max().item() for v in want.values())
+    out: dict = {}
+    for k, v in want.items():
+        scale = v.abs().max().item()
+        if scale < 1e-5 * top:
+            continue
+        part = k.split(".")[0]
+        out[part] = max(out.get(part, 0.0),
+                        (got[k] - v).abs().max().item() / scale)
+    return out
+
+
+def dp_grads(module) -> dict:
+    return {k: p.grad.detach().cpu() for k, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def dp_stats(module) -> dict:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()
+            if "running" in k}
+
+
+def dp_steps(spec: dict, res: dict) -> None:
+    """6e (i), one rank of two on the one card: f32 LDM steps (clean and
+    with garbage in the pad row), an AE step and a distill step on this
+    rank's rows of the global batch of 8 (7 real), draws injected."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
+    from music_style_transfer_ldm_tpu_torch.parallel import (
+        batch_validity_weights, make_mesh, shard_batch,
+    )
+    from music_style_transfer_ldm_tpu_torch.training import (
+        AETrainer, LDMTrainer, ProgressiveDistiller,
+    )
+    torch.backends.cudnn.deterministic = True
+    cfg = dp_f32_config()
+    mesh = make_mesh()
+    w = batch_validity_weights(spec["n_real"], mesh.size, mesh)
+
+    def rows(*keys):
+        return shard_batch(tuple(torch.as_tensor(spec[k]) for k in keys),
+                           mesh)
+    for tag in ("clean", "garbage"):
+        tr = LDMTrainer(cfg)
+        st = tr.init_state(0)
+        st.model.load_state_dict(spec["ldm"])
+        c, s, t, noise = rows(f"content_{tag}", f"style_{tag}", "t", "noise")
+        st, m = tr._step(st, c, s, t=t.long(), noise=noise, weights=w)
+        res[f"ldm_{tag}"] = {"metrics": {k: v.item() for k, v in m.items()},
+                             "grads": dp_grads(st.model),
+                             "stats": dp_stats(st.model.decoder)}
+    (x,) = rows("content_clean")
+    for case, ae_cfg, perceptual in dp_ae_cases(cfg):
+        ae = AETrainer(ae_cfg, perceptual=perceptual)
+        st = ae.init_state(0)
+        st.model.load_state_dict(spec["ae"])
+        st, loss = ae._step(st, x, weights=w)
+        res[case] = {"loss": loss.item(), "grads": dp_grads(st.model),
+                     "stats": dp_stats(st.model)}
+    dist = ProgressiveDistiller(cfg, t_max=100)
+    student = build_ldm(cfg, dtype=torch.float32, device=mesh.device, seed=0)
+    student.load_state_dict(spec["ldm"])
+    student.requires_grad_(False)
+    student.unet.requires_grad_(True)
+    stage = dist.start_stage(student, 0, 4, 2, 1e-4)
+    c, s, seg, dn = rows("content_clean", "style_clean", "segment",
+                         "d_noise")
+    dist.draws = lambda *a: (seg.long(), dn)
+    loss = dist.step(student, stage, c, s, 0, 0, weights=w)
+    res["distill"] = {"loss": loss.item(), "grads": dp_grads(student.unet)}
+
+
+def dp_loader(spec: dict, res: dict) -> None:
+    """6e (ii), one rank of two on the one card: 20 bf16 LDM steps at the
+    defaults, global B=128 split 2 x 64, fed by DevicePairLoader over the
+    corpus on the card; host clock, kernel time, idle share, bytes
+    all-reduced, peak memory, launches."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.datasets import (
+        DevicePairLoader, DeviceResidentPairs,
+    )
+    from music_style_transfer_ldm_tpu_torch.parallel import make_mesh
+    from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+        COUNTS,
+    )
+    from music_style_transfer_ldm_tpu_torch.config import default_config
+    from music_style_transfer_ldm_tpu_torch.training import LDMTrainer
+    mesh = make_mesh()
+    resident = DeviceResidentPairs(spec["spk"], spec["pairs"], mesh=mesh)
+    order = spec["order"]
+
+    def loader(ids):
+        return DevicePairLoader(resident, 128, indices=ids, shuffle=False)
+    tr = LDMTrainer(default_config())
+    st, _ = tr.train_epoch(tr.init_state(0), loader(order[:256]))
+    counted = dp_counted()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    before = dict(COUNTS)
+    t0 = time.perf_counter()
+    st, metrics = tr.train_epoch(st, loader(order))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    res["launches"] = {fn.__name__: fn.launches for fn in counted}
+    ddp_bytes = sum(p.numel() * p.element_size()
+                    for p in st.model.parameters() if p.requires_grad)
+    box = [st]
+
+    def three():
+        box[0], _ = tr.train_epoch(box[0], loader(order[:384]))
+    kernels = profiled_kernels(three, Path(spec["profile"])
+                               / f"rank{mesh.index}")
+    device_ms = sum(us for us, *_ in kernels) / 1e3 / 3
+    res["loader"] = {
+        "ms_per_step": ms, "metrics": metrics,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "device_ms_per_step": device_ms,
+        "idle_share": (1.0 - device_ms / ms) if device_ms > 0 else None,
+        "allreduce_bytes_per_step": ddp_bytes + (
+            COUNTS["all_reduce_bytes"] - before["all_reduce_bytes"]) / 20,
+        "ddp_gradient_bytes": ddp_bytes,
+        "other_allreduce_calls_per_step": (
+            COUNTS["all_reduce_calls"] - before["all_reduce_calls"]) / 20,
+        "top_kernels_ms": [(k[:60], us / 1e3 / 3)
+                           for us, k, _ in kernels[:5]]}
+
+
+def dp_world_size_1(spec: dict, res: dict) -> None:
+    """6e (iii), one rank under torch.distributed.run on nccl: the
+    data-parallel machinery at world size 1 (DistributedDataParallel,
+    BatchNorm's all_reduce) against the plain trainer, bf16 B=128."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.config import default_config
+    from music_style_transfer_ldm_tpu_torch.parallel import make_mesh
+    from music_style_transfer_ldm_tpu_torch.training import LDMTrainer
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    c = torch.rand(128, 128, 128, 1, device=dev, generator=g)
+    s = torch.rand(128, 128, 128, 1, device=dev, generator=g)
+    trainers = {"dp": LDMTrainer(default_config()),
+                "plain": LDMTrainer(default_config(),
+                                    mesh=make_mesh(devices=[dev]))}
+    check(trainers["dp"].mesh.distributed
+          and not trainers["plain"].mesh.distributed, "6e (iii) meshes")
+    states = {k: tr.init_state(0) for k, tr in trainers.items()}
+    out = {k: [] for k in trainers}
+    metrics = {}
+    for name in ("plain", "dp", "dp", "plain"):
+        tr = trainers[name]
+        for _ in range(2):                                  # warm-up
+            states[name], _ = tr._step(states[name], c, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            states[name], m = tr._step(states[name], c, s)
+        torch.cuda.synchronize()
+        out[name].append(1e3 * (time.perf_counter() - t0) / 10)
+        metrics[name] = {k: v.item() for k, v in m.items()}
+    res["ws1"] = {"ms_per_step": out, "metrics": metrics,
+                  "backend": torch.distributed.get_backend()}
+
+
+def dp_worker(args) -> int:
+    """A rank of phase 6e: started by the phase, never by hand."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from music_style_transfer_ldm_tpu_torch import parallel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_worker == "ws1":
+        check(parallel.initialize(), "no torchrun environment")
+    else:
+        check(parallel.initialize(args.store, args.world, args.rank,
+                                  backend="gloo", device="cuda:0"),
+              "the process group did not start")
+    spec = torch.load(args.spec, weights_only=False)
+    counted = dp_counted()
+    for fn in counted:
+        fn.launches = 0
+    res = {"backend": torch.distributed.get_backend()}
+    {"steps": dp_steps, "loader": dp_loader,
+     "ws1": dp_world_size_1}[args.dp_worker](spec, res)
+    torch.cuda.synchronize()
+    res.setdefault("launches", {fn.__name__: fn.launches for fn in counted})
+    rank = torch.distributed.get_rank()
+    torch.save(res, f"{args.out}.{rank}")
+    print(f"6e {args.dp_worker} rank {rank}: launches {res['launches']}",
+          flush=True)
+    parallel.shutdown()
+    return 0
+
+
+def run_group(cmd, timeout: float, **kw) -> int:
+    """Run cmd in a session of its own; on a timeout kill the session
+    (a launcher's children too).  -> exit code."""
+    import os
+    import signal
+    proc = subprocess.Popen(cmd, start_new_session=True, **kw)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        fail(f"timed out after {timeout} s: {' '.join(map(str, cmd))}")
+
+
+def dp_spawn(mode: str, world: int, spec: dict, ddir: Path,
+             timeout: float = 900) -> list:
+    """``world`` ranks of this script over gloo on the one card (6e (i),
+    (ii)); their result dicts.  Every rank is waited for or killed."""
+    import torch
+    ddir.mkdir(parents=True, exist_ok=True)
+    spec_path, store = ddir / f"{mode}.spec", ddir / f"{mode}.store"
+    torch.save(spec, spec_path)
+    store.unlink(missing_ok=True)
+    out = ddir / f"{mode}.out"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-worker", mode,
+         "--rank", str(r), "--world", str(world), "--store",
+         f"file://{store}", "--spec", str(spec_path), "--out", str(out)])
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(rc == 0 for rc in rcs), f"6e {mode}: rank exit codes {rcs}")
+    return [torch.load(f"{out}.{r}", weights_only=False)
+            for r in range(world)]
+
+
+def dp_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_stats_err(got: dict, want: dict) -> float:
+    """Max over statistics of max |got - want| / max |want|."""
+    return max((got[k] - v).abs().max().item() / max(v.abs().max().item(),
+                                                     1e-30)
+               for k, v in want.items())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the measurements here (JSON)")
+    # phase 6e starts its ranks as this script with these
+    ap.add_argument("--dp-worker", choices=["steps", "loader", "ws1"],
+                    help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--store", "--spec"):
+        ap.add_argument(flag, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_worker:
+        return dp_worker(args)
 
     # ---- 1. device ----------------------------------------------------
     import torch
@@ -881,7 +1212,7 @@ def main() -> int:
           "zero gradients")
     vgg16 = VGGishFeatures(torch.bfloat16).to(dev)
     vgg16.load_state_dict(vgg32.state_dict())
-    for B in (8, 128):
+    for B in (8, 64, 128):
         pb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
         tb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
         wb = torch.ones(B, device=dev)
@@ -1911,6 +2242,300 @@ def main() -> int:
     del resident, trainer_d, state_d, box_d
     shutil.rmtree(audio_dir, ignore_errors=True)
 
+    # ---- 6e. the data-parallel path ------------------------------------
+    # (i) two ranks of this script on the one card over gloo (CUDA
+    # tensors): f32 LDM, AE and distill steps on a global batch of 8 with
+    # 7 real rows, each against the one-process step on the 7 rows
+    pdir = work / "data_parallel"
+    shutil.rmtree(pdir, ignore_errors=True)
+    dp_rng = np.random.RandomState(21)
+    cfg32 = dp_f32_config()
+    spec = {"n_real": 7}
+    for tag, filler in (("clean", None), ("garbage", 10.0)):
+        for key in ("content", "style"):
+            a = dp_rng.rand(8, 128, 128, 1).astype(np.float32)
+            if tag == "garbage":
+                a = spec[f"{key}_clean"].copy()
+                a[7] = filler * dp_rng.rand(128, 128, 1)
+            else:
+                a[7] = a[6]
+            spec[f"{key}_{tag}"] = a
+    spec["t"] = dp_rng.randint(0, 200, 8)
+    spec["noise"] = dp_rng.randn(8, 16, 16, 32).astype(np.float32)
+    spec["segment"] = dp_rng.randint(0, 2, 8)
+    spec["d_noise"] = dp_rng.randn(8, 16, 16, 32).astype(np.float32)
+    ldm_one = build_ldm(cfg32, dtype=torch.float32, device=dev, seed=0)
+    spec["ldm"] = {k: v.cpu() for k, v in ldm_one.state_dict().items()}
+    ae_one = AETrainer(cfg32).init_state(0).model
+    spec["ae"] = {k: v.cpu() for k, v in ae_one.state_dict().items()}
+    del ldm_one, ae_one
+    t0 = time.perf_counter()
+    ranks = dp_spawn("steps", 2, spec, pdir)
+    steps_s = time.perf_counter() - t0
+    # the one-process steps on the 7 real rows
+    torch.backends.cudnn.deterministic = True
+
+    def real(key):
+        return torch.as_tensor(spec[key][:7], device=dev)
+    one = {}
+    tr = LDMTrainer(cfg32)
+    st = tr.init_state(0)
+    st.model.load_state_dict(spec["ldm"])
+    st, m = tr._step(st, real("content_clean"), real("style_clean"),
+                     t=real("t").long(), noise=real("noise"))
+    one["ldm"] = {"metrics": {k: v.item() for k, v in m.items()},
+                  "grads": dp_grads(st.model),
+                  "stats": dp_stats(st.model.decoder)}
+    for case, ae_cfg, perceptual in dp_ae_cases(cfg32):
+        ae = AETrainer(ae_cfg, perceptual=perceptual)
+        st = ae.init_state(0)
+        st.model.load_state_dict(spec["ae"])
+        st, loss = ae._step(st, real("content_clean"))
+        one[case] = {"loss": loss.item(), "grads": dp_grads(st.model),
+                     "stats": dp_stats(st.model)}
+    dist = ProgressiveDistiller(cfg32, t_max=100)
+    student = build_ldm(cfg32, dtype=torch.float32, device=dev, seed=0)
+    student.load_state_dict(spec["ldm"])
+    student.requires_grad_(False)
+    student.unet.requires_grad_(True)
+    stage = dist.start_stage(student, 0, 4, 2, 1e-4)
+    seg7, dn7 = real("segment").long(), real("d_noise")
+    dist.draws = lambda *a: (seg7, dn7)
+    loss = dist.step(student, stage, real("content_clean"),
+                     real("style_clean"), 0, 0)
+    one["distill"] = {"loss": loss.item(), "grads": dp_grads(student.unet)}
+    torch.backends.cudnn.deterministic = False
+    del tr, ae, dist, student, stage, st
+    dp_i = {"seconds": steps_s, "ranks": []}
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo", "6e (i) is not on gloo")
+        row = {"launches": res["launches"]}
+        for case in ("ldm", *AE_CASES, "distill"):
+            got = res["ldm_clean" if case == "ldm" else case]
+            want = one[case]
+            if case == "ldm":
+                row["ldm_loss_rel"] = max(dp_rel(got["metrics"][k], v)
+                                          for k, v in want["metrics"].items())
+            else:
+                row[f"{case}_loss_rel"] = dp_rel(got["loss"], want["loss"])
+            row[f"{case}_grad_of_max"] = grad_err_of_max(got["grads"],
+                                                         want["grads"])
+            if "stats" in want:
+                row[f"{case}_stats_rel"] = dp_stats_err(got["stats"],
+                                                        want["stats"])
+        row["ae_grad_of_max_by_part"] = {
+            case: dp_grad_of_max_by_part(res[case]["grads"],
+                                         one[case]["grads"])
+            for case in AE_CASES}
+        row["garbage_rel"] = max(
+            dp_rel(res["ldm_garbage"]["metrics"][k], v)
+            for k, v in res["ldm_clean"]["metrics"].items())
+        dp_i["ranks"].append(row)
+        print(f"6e (i) rank {r} of 2 on the one card (gloo, f32, global B=8"
+              f" with 7 real rows) against one process on the 7 rows: "
+              f"{ {k: v for k, v in row.items() if k != 'launches'} }; "
+              f"launches {row['launches']}")
+        for case in ("ldm", *AE_CASES, "distill"):
+            check(row[f"{case}_loss_rel"] <= TOL_DP_LOSS,
+                  f"6e (i) rank {r}: {case} loss off by "
+                  f"{row[f'{case}_loss_rel']:.3g} (tol {TOL_DP_LOSS})")
+        for case in ("ldm", "distill"):
+            check(row[f"{case}_grad_of_max"] <= TOL_DP_GRAD,
+                  f"6e (i) rank {r}: {case} gradients off by "
+                  f"{row[f'{case}_grad_of_max']:.3g} of max "
+                  f"(tol {TOL_DP_GRAD})")
+        for case, parts in row["ae_grad_of_max_by_part"].items():
+            for part, err in parts.items():
+                tol = (TOL_AE_KL_ENCODER if part == "encoder"
+                       and case in ("ae", "ae_no_lpips") else TOL_DP_GRAD)
+                check(err <= tol, f"6e (i) rank {r}: {case} {part} "
+                      f"gradients off by {err:.3g} of max (tol {tol})")
+        for case in ("ldm", *AE_CASES):
+            check(row[f"{case}_stats_rel"] <= TOL_DP_STATS,
+                  f"6e (i) rank {r}: {case} BatchNorm statistics off by "
+                  f"{row[f'{case}_stats_rel']:.3g} (tol {TOL_DP_STATS})")
+        check(row["garbage_rel"] <= TOL_DP_GARBAGE,
+              f"6e (i) rank {r}: garbage in the pad row moved a metric by "
+              f"{row['garbage_rel']:.3g} (tol {TOL_DP_GARBAGE})")
+        check(res["launches"]["fused_trunk"] > 0
+              and res["launches"]["normalized_mse_forward"] > 0,
+              f"6e (i) rank {r}: kernels D and E did not run")
+    for case in ("ldm_clean", *AE_CASES):
+        for k, v in ranks[0][case]["stats"].items():
+            check(torch.equal(ranks[1][case]["stats"][k], v),
+                  f"6e (i): the ranks' {case} statistics differ at {k}")
+    del ranks
+
+    # (ii) 20 bf16 LDM steps at the defaults, global B=128 as 2 x 64, fed
+    # by DevicePairLoader(mesh=) over the card-resident corpus
+    t0 = time.perf_counter()
+    ranks = dp_spawn("loader", 2, {
+        "spk": str(spk), "pairs": str(pairs_csv), "order": order,
+        "profile": str(work / "profile" / "data_parallel")}, pdir)
+    loader_s = time.perf_counter() - t0
+    dp_ii = {"seconds": loader_s,
+             "ranks": [dict(res["loader"], launches=res["launches"])
+                       for res in ranks]}
+    for r, row in enumerate(dp_ii["ranks"]):
+        idle = row["idle_share"]
+        print(f"time {card} 6e (ii) rank {r} of 2 on the one card (gloo, "
+              f"bf16, B=64 per rank, DevicePairLoader): "
+              f"{row['ms_per_step']:.1f} ms/step (host clock over 20 steps),"
+              f" device {row['device_ms_per_step']:.2f} ms/step "
+              f"(torch.profiler over 3), idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+              f"{row['allreduce_bytes_per_step'] / 1e6:.2f} MB all-reduced "
+              f"per step ({row['ddp_gradient_bytes'] / 1e6:.2f} MB of "
+              f"gradients in DistributedDataParallel's buckets, "
+              f"{row['other_allreduce_calls_per_step']:.0f} other calls), "
+              f"peak memory {row['peak_mib']:.0f} MiB; metrics "
+              f"{ {k: round(v, 5) for k, v in row['metrics'].items()} }; "
+              f"launches {row['launches']}; top device entries "
+              f"{[(k, round(v, 3)) for k, v in row['top_kernels_ms']]}")
+        check(all(np.isfinite(v) for v in row["metrics"].values()),
+              f"6e (ii) rank {r}: a non-finite loss")
+        check(row["launches"]["fused_trunk"] > 0,
+              f"6e (ii) rank {r}: kernel E never ran")
+    check(dp_ii["ranks"][0]["metrics"] == dp_ii["ranks"][1]["metrics"],
+          "6e (ii): the ranks report different global metrics")
+    del ranks
+
+    # (iii) torch.distributed.run at world size 1 on nccl: the CLI as a
+    # user runs it (2 steps at B=128), then the data-parallel machinery
+    # against the plain trainer
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (str(Path(__file__).resolve().parent) + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1"]
+    t0 = time.perf_counter()
+    rc = run_group(torchrun + [
+        "-m", "music_style_transfer_ldm_tpu_torch.cli", "train", "--model",
+        "ldm", "--data-root", str(imgs), "--pairing-file",
+        str(tdir / "pairs.csv"), "--epochs", "1", "--out-dir",
+        str(pdir / "cli_run")], 900, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    cli_dp_s = time.perf_counter() - t0
+    check(rc == 0, f"6e (iii): torchrun cli train returned {rc}")
+    dp_ckpt = torch.load(pdir / "cli_run" / "ldm_final.pt",
+                         map_location="cpu", weights_only=True)
+    rows = (pdir / "cli_run" / "metrics.csv").read_text().splitlines()
+    logged = dict(zip(rows[0].split(","), map(float, rows[-1].split(","))))
+    check(dp_ckpt["step"] == 2, f"6e (iii): {dp_ckpt['step']} steps")
+    check(all(np.isfinite(logged[k]) for k in (
+        "total_loss", "compression_loss", "denoising_loss", "style_loss")),
+        "6e (iii): a non-finite loss")
+    torch.save({}, pdir / "ws1.spec")
+    rc = run_group(torchrun + [
+        str(Path(__file__).resolve()), "--dp-worker", "ws1", "--spec",
+        str(pdir / "ws1.spec"), "--out", str(pdir / "ws1.out")], 900,
+        env=env)
+    check(rc == 0, f"6e (iii): the world-size-1 rank returned {rc}")
+    ws1 = torch.load(pdir / "ws1.out.0", weights_only=False)
+    check(ws1["ws1"]["backend"] == "nccl", "6e (iii) is not on nccl")
+    dp_iii = {"cli_seconds": cli_dp_s, "cli_metrics": logged,
+              **ws1["ws1"], "launches": ws1["launches"]}
+    print(f"time {card} 6e (iii) torch.distributed.run --nproc-per-node 1 "
+          f"cli train --model ldm (nccl, 2 steps at B=128, bf16): "
+          f"{cli_dp_s:.1f} s wall, step {dp_ckpt['step']}, metrics "
+          f"{ {k: round(v, 5) for k, v in logged.items()} }; LDM step "
+          f"B=128 bf16, ms/step over 10 (host clock), runs in the order "
+          f"plain, dp, dp, plain: data-parallel machinery at world size 1 "
+          f"{[round(v, 2) for v in dp_iii['ms_per_step']['dp']]}, plain "
+          f"trainer {[round(v, 2) for v in dp_iii['ms_per_step']['plain']]}"
+          f"; launches {dp_iii['launches']}")
+
+    # (iv) the engine over two replicas on the one card, f32, against the
+    # single-replica scan engine, cuDNN deterministic: its other
+    # algorithms move an f32 image by an ulp from run to run, on one
+    # replica as on two, and Griffin-Lim turns that into ~1e-3 of audio
+    # (tools/torch_replica_spread.py). A replica's batch is half the
+    # bucket's, and cuDNN picks its algorithm by batch, so the replicas
+    # are held exactly to one replica at their batch and the audio to
+    # one replica at the whole bucket within that replica's own spread
+    # between the two batches.
+    torch.backends.cudnn.deterministic = True
+    from music_style_transfer_ldm_tpu_torch.parallel import make_mesh
+    card0 = torch.device("cuda", 0)
+    eng_m = InferenceEngine(ldm32, EngineConfig(sampler="fused"),
+                            mesh=make_mesh((2, 1), devices=[card0, card0]))
+    check(eng_m.config.batch_buckets == (2, 4, 8)
+          and not any(eng_m.uses_fused(b) for b in (2, 4, 8)),
+          "6e (iv): buckets not rounded or the fused route taken")
+    eng_1 = InferenceEngine(ldm32, EngineConfig(sampler="ddim"))
+    eng_1.warmup()
+    reset_counts()
+    eng_m.warmup()
+    wav = (0.3 * np.sin(2 * np.pi * 220.0 * np.arange(66150) / 22050.0)
+           ).astype(np.float32)[None]
+    eng_m.ap.waveform_batch_to_unit_images(wav)
+    dp_iv = {"buckets": {}}
+    meshed = {}
+    for b in (1, 3, 4, 8):
+        t0 = time.perf_counter()
+        meshed[b] = eng_m.transfer_batch(reqs_c[:b], reqs_s[:b],
+                                         seeds=40 + np.arange(b))
+        dp_iv["buckets"][b] = {"ms_mesh": 1e3 * (time.perf_counter() - t0)}
+    serve_launches = read_counts()
+    print(f"6e (iv) launches (warm-up, WAV front end, 4 transfers): "
+          f"{serve_launches}")
+    check(serve_launches["fused_ddim_sample"] == 0,
+          "6e (iv): kernel A ran under a mesh")
+    check(serve_launches["fused_ddim_update"] > 0
+          and serve_launches["fused_mel_unit_image"] > 0,
+          "6e (iv): kernels B and C did not run")
+    for b, got in meshed.items():
+        t0 = time.perf_counter()
+        want = eng_1.transfer_batch(reqs_c[:b], reqs_s[:b],
+                                    seeds=40 + np.arange(b))
+        row = dp_iv["buckets"][b]
+        row["ms_one"] = 1e3 * (time.perf_counter() - t0)
+        # one replica on each replica's block of the padded bucket: the
+        # same rows at the same batch as each replica
+        bucket = min(k for k in eng_m.config.batch_buckets if k >= b)
+        idx, half = np.minimum(np.arange(bucket), b - 1), bucket // 2
+        blocks = [eng_1.transfer_batch(reqs_c[idx[i:i + half]],
+                                       reqs_s[idx[i:i + half]],
+                                       seeds=40 + idx[i:i + half])
+                  for i in (0, half)]
+        for key in ("image", "audio"):
+            block = np.concatenate([o[key] for o in blocks])[:b]
+            row[f"{key}_err"] = float(np.abs(got[key] - want[key]).max())
+            row[f"{key}_vs_blocks"] = float(np.abs(got[key] - block).max())
+            row[f"{key}_batch_spread"] = float(
+                np.abs(block - want[key]).max())
+        print(f"time {card} 6e (iv) {b} request(s), bucket {bucket}: two "
+              f"replicas on the one card {row['ms_mesh']:.1f} ms, one "
+              f"replica {row['ms_one']:.1f} ms (host clock, transfer_batch "
+              f"with audio, f32, cuDNN deterministic); max abs difference "
+              f"from one replica: image {row['image_err']:.3g}, audio "
+              f"{row['audio_err']:.3g}; from one replica on each block of "
+              f"{half}: image {row['image_vs_blocks']:.3g}, audio "
+              f"{row['audio_vs_blocks']:.3g} (tol {TOL_DP_SERVE}); one "
+              f"replica's blocks from its whole bucket: image "
+              f"{row['image_batch_spread']:.3g}, audio "
+              f"{row['audio_batch_spread']:.3g}")
+        check(row["image_err"] <= TOL_DP_SERVE,
+              f"6e (iv): bucket of {b}: image off by {row['image_err']}")
+        for key in ("image", "audio"):
+            check(row[f"{key}_vs_blocks"] <= TOL_DP_SERVE,
+                  f"6e (iv): bucket of {b}: the replicas' {key} off one "
+                  f"replica's at their batch by {row[f'{key}_vs_blocks']}")
+        check(row["audio_err"] <= row["audio_batch_spread"] + TOL_DP_SERVE,
+              f"6e (iv): bucket of {b}: audio off by {row['audio_err']}, "
+              f"beyond one replica's own spread between batches "
+              f"{row['audio_batch_spread']}")
+    torch.backends.cudnn.deterministic = False
+    del eng_m, eng_1
+    rank_launches = {k: sum(r["launches"][k] for r in dp_i["ranks"])
+                     + sum(r["launches"][k] for r in dp_ii["ranks"])
+                     for k in dp_i["ranks"][0]["launches"]}
+    results["launches"]["data_parallel_ranks"] = rank_launches
+    results["launches"]["data_parallel_serving"] = serve_launches
+    results["data_parallel"] = {"i": dp_i, "ii": dp_ii, "iii": dp_iii,
+                                "iv": dp_iv}
+    shutil.rmtree(pdir, ignore_errors=True)
+
     # ---- 7. times -------------------------------------------------------
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
@@ -2123,7 +2748,7 @@ def main() -> int:
     del p16, t16
     # kernel E: the trunk from f1, bf16, B=8 and B=128
     times.update({"kernel_e_ms": {}, "plain_e_ms": {}, "bound_e_ms": {}})
-    for B in (8, 128):
+    for B in (8, 64, 128):
         pb = torch.rand(B, 128, 128, 1, device=dev, generator=g)
         f1 = ft.conv1_both(vgg16, pb, pb.flip(0))
         for grad in (False, True):
@@ -2411,7 +3036,10 @@ def main() -> int:
          "ms": times["kernel_e_ms"]["value_b128"],
          "plain_ms": times["plain_e_ms"]["value_b128"],
          "bound_ms": times["bound_e_ms"]["value_b128"],
-         "bound_by": "operations", "library_ms": e_library_ms},
+         "bound_by": "operations", "library_ms": e_library_ms,
+         "value_b64_per_rank": {"ms": times["kernel_e_ms"]["value_b64"],
+                                "plain_ms": times["plain_e_ms"]["value_b64"],
+                                "bound_ms": times["bound_e_ms"]["value_b64"]}},
     ]
     by_path = {"normalized_mse": ("normalized_mse_forward",
                                   "normalized_mse_backward"),

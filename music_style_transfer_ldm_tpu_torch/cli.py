@@ -21,6 +21,9 @@
       --checkpoint runs/ldm/ldm_final.pt --data-root images/ \\
       --pairing-file pairs.csv --out-dir runs/distill
   python -m music_style_transfer_ldm_tpu_torch.cli diagnose --checkpoint ckpt.pt
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m music_style_transfer_ldm_tpu_torch.cli train --model ldm ...
+  python -m music_style_transfer_ldm_tpu_torch.cli serve --mesh-dp N ...
 
 ``download`` fetches audio with yt-dlp (optional; not on the card's
 machine); ``build-dataset`` turns it into the PNG tree (or, with
@@ -35,6 +38,14 @@ one ``distilled_<n>.pt`` per stage, an n-step student that ``transfer``
 and ``serve`` sample at ``--steps <t_max> --sample-steps <n + 1>``.
 Everything runs on the card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels on the CPU instead (the tests use it).
+
+``train`` and ``distill`` start a process group when
+``torch.distributed.run`` launched them (``parallel/distributed.py``):
+each rank trains on its own card (``cuda:LOCAL_RANK``; with ``--device
+cpu`` on the CPU over gloo) and loads its slice of every global batch of
+128, and rank 0 writes.  ``serve --mesh-dp N`` runs one model replica on
+each of the first N cards (N CPU replicas with ``--device cpu``) and
+splits every bucket over them.
 """
 
 from __future__ import annotations
@@ -88,6 +99,9 @@ from music_style_transfer_ldm_tpu_torch.models.ldm import (
 )
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
     fused_content_style_transfer, fused_style_sample,
+)
+from music_style_transfer_ldm_tpu_torch.parallel import (
+    initialize, make_mesh, process_info, shutdown,
 )
 from music_style_transfer_ldm_tpu_torch.serving.engine import (
     EngineConfig, InferenceEngine,
@@ -339,6 +353,23 @@ def _serve_engine_config(ecfg, args, path, name, num_timesteps: int = 200):
     return ecfg
 
 
+def serving_mesh(args):
+    """``--mesh-dp N``: a mesh over the first N cards, or N CPU replicas
+    with ``--device cpu``; None for N = 1.  N above the card count is
+    refused."""
+    n = args.mesh_dp
+    if n < 1:
+        raise SystemExit(f"--mesh-dp {n}: must be at least 1")
+    if n == 1:
+        return None
+    if torch.device(args.device).type == "cpu":
+        return make_mesh((n, 1), devices=["cpu"] * n)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > count:
+        raise SystemExit(f"--mesh-dp {n}: {count} card(s) on this machine")
+    return make_mesh((n, 1), devices=[f"cuda:{i}" for i in range(n)])
+
+
 def build_engines(args) -> dict:
     """{name: warmed InferenceEngine} for ``serve``'s --checkpoint entries
     (a bare path, or name=path; the first is the default model).
@@ -352,6 +383,7 @@ def build_engines(args) -> dict:
                         batch_buckets=tuple(args.buckets),
                         max_wait_ms=args.max_wait_ms,
                         autoscale=args.autoscale)
+    mesh = serving_mesh(args)
     engines = {}
     for spec in args.checkpoint:
         name, _, path = spec.rpartition("=")
@@ -361,7 +393,7 @@ def build_engines(args) -> dict:
                        use_ema=not args.raw_weights, device=args.device)
         engines[name] = InferenceEngine(ldm, _serve_engine_config(
             ecfg, args, path, name, cfg.diffusion.num_timesteps),
-            audio=cfg.audio)
+            audio=cfg.audio, mesh=mesh)
     print(f"warming {len(args.buckets)} batch buckets x "
           f"{len(engines)} model(s)...", flush=True)
     for eng in engines.values():
@@ -442,12 +474,33 @@ def _load_feature_params(path, expected_kind: str):
     return payload["params"]
 
 
+def _start_process_group(args) -> tuple:
+    """(started, process index, process count): the process group of a
+    ``torch.distributed.run`` launch, each rank on ``cuda:LOCAL_RANK`` (or
+    the device ``--device`` names); a single process stays as it is."""
+    started = initialize(device=None if args.device == "cuda"
+                         else args.device)
+    info = process_info()
+    return started, info["process_index"], info["process_count"]
+
+
 def cmd_train(args) -> int:
     """Phase 1 (``--model autoencoder``: the image folder split 80/20,
     ``pretrained.pt`` at the best validation loss) or phase 2 (``--model
     ldm``: a pairings CSV over the image folder, optionally from phase 1's
     ``--pretrained-ae``; ``ldm_final.pt`` at the end).  Checkpoints go
-    under --out-dir."""
+    under --out-dir.  Under ``torch.distributed.run`` every rank trains
+    on its slice of each global batch."""
+    started, index, count = _start_process_group(args)
+    try:
+        return _train(args, index, count)
+    finally:
+        if started:
+            shutdown()
+
+
+def _train(args, index: int, count: int) -> int:
+    main = index == 0
     cfg = default_config()
     overrides = {"num_epochs": args.epochs, "learning_rate": args.lr,
                  "style_dropout": args.style_dropout or None,
@@ -466,19 +519,21 @@ def cmd_train(args) -> int:
         if ldm_only:
             raise SystemExit(f"{', '.join(ldm_only)}: LDM only (train "
                              "--model ldm)")
-        train_loader, val_loader = prepare_dataset(cfg, root)
+        train_loader, val_loader = prepare_dataset(cfg, root, index, count)
         trainer = AETrainer(cfg, device=args.device)
         trainer.train(train_loader, val_loader, out_dir=args.out_dir,
                       resume_from=args.resume_from)
-        print(f"autoencoder: {len(train_loader)} train / {len(val_loader)} "
-              f"validation batches per epoch; best weights in "
-              f"{Path(args.out_dir) / 'pretrained.pt'} (for train --model "
-              "ldm --pretrained-ae)", flush=True)
+        if main:
+            print(f"autoencoder: {len(train_loader)} train / "
+                  f"{len(val_loader)} validation batches per epoch; best "
+                  f"weights in {Path(args.out_dir) / 'pretrained.pt'} (for "
+                  "train --model ldm --pretrained-ae)", flush=True)
         return 0
     pairs = SpectrogramPairDataset(root, args.pairing_file
                                    or cfg.data.pairing_file)
     loader = BatchLoader(pairs, cfg.train.batch_size, shuffle=True,
-                         seed=cfg.train.seed)
+                         seed=cfg.train.seed, process_index=index,
+                         process_count=count)
     trainer = LDMTrainer(
         cfg, device=args.device,
         style_feature_params=_load_feature_params(args.style_features,
@@ -490,8 +545,9 @@ def cmd_train(args) -> int:
            if args.pretrained_ae else None)
     trainer.train(loader, pretrained_autoencoder=pre, out_dir=args.out_dir,
                   resume_from=args.resume_from)
-    print(f"trained {len(loader)} steps per epoch; checkpoints under "
-          f"{args.out_dir}", flush=True)
+    if main:
+        print(f"trained {len(loader)} steps per epoch; checkpoints under "
+              f"{args.out_dir}", flush=True)
     return 0
 
 
@@ -546,7 +602,17 @@ def cmd_distill(args) -> int:
     """Progressive distillation of the transfer sampler
     (``training/distill.py``) from a full checkpoint (its EMA weights when
     it has them) over a pairings CSV; one ``distilled_<n>.pt`` per stage
-    under --out-dir."""
+    under --out-dir.  Under ``torch.distributed.run`` every rank takes its
+    slice of each global batch."""
+    started, index, count = _start_process_group(args)
+    try:
+        return _distill(args, index, count)
+    finally:
+        if started:
+            shutdown()
+
+
+def _distill(args, index: int, count: int) -> int:
     cfg = default_config()
     if args.batch_size:
         cfg.train = dataclasses.replace(cfg.train,
@@ -556,9 +622,10 @@ def cmd_distill(args) -> int:
     pairs = SpectrogramPairDataset(root, args.pairing_file
                                    or cfg.data.pairing_file)
     loader = BatchLoader(pairs, cfg.train.batch_size, shuffle=True,
-                         seed=cfg.train.seed)
+                         seed=cfg.train.seed, process_index=index,
+                         process_count=count)
     teacher = load_ldm(cfg, full_checkpoint=args.checkpoint,
-                       dtype=torch.float32, device=args.device)
+                       dtype=torch.float32, device=dist.device)
     stages = [int(s) for s in args.stages.split(",") if s]
     _, info = dist.distill(teacher, loader, stages=stages,
                            steps_per_stage=args.steps_per_stage,
@@ -566,6 +633,8 @@ def cmd_distill(args) -> int:
                            seed=cfg.train.seed, guidance=args.guidance,
                            inflight_every=args.inflight_every)
     final = info["steps"]
+    if index:
+        return 0
     # The student only saw linspace(t_max - 1, 0, N + 1): --steps must be
     # the distillation's t_max.
     print(f"distilled to {final} steps; transfer with "
@@ -683,6 +752,11 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--generate-guidance", type=float, default=1.0,
                     help="guidance of /v1/generate")
     sv.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
+    sv.add_argument("--mesh-dp", type=int, default=1,
+                    help="one model replica on each of the first N cards "
+                         "(N CPU replicas with --device cpu); every "
+                         "bucket rounds up to a multiple of N and splits "
+                         "over them")
     sv.add_argument("--max-wait-ms", type=float, default=5.0)
     sv.add_argument("--auth-token", default=None,
                     help="require 'Authorization: Bearer <token>'")

@@ -1,12 +1,13 @@
 """Framework configuration (copy of the JAX package's dataclasses).
 
 The port keeps its own copy so it imports nothing of the JAX package.
-Parallelism (the JAX package's ``MeshConfig``) is not part of this slice.
+``MeshConfig`` is the data-parallel layout of ``parallel/``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass
@@ -93,6 +94,21 @@ class DataConfig:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """The device mesh's layout (``parallel/mesh.py``), the JAX
+    package's fields.  ``data_axis`` and ``model_axis`` are inert: the
+    port names its axes "data" and "model" and reads neither field."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # (-1, 1): every rank (or listed device) on the data axis.  A model
+    # axis > 1 (tensor parallelism) and sequence_parallel (width-sharded
+    # batches) are not ported yet: both raise NotImplementedError.
+    mesh_shape: Tuple[int, int] = (-1, 1)
+    sequence_parallel: bool = False
+
+
+@dataclasses.dataclass
 class Config:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -100,6 +116,7 @@ class Config:
         default_factory=DiffusionConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def default_config() -> Config:

@@ -29,11 +29,15 @@ from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 class DeviceResidentPairs:
     """Paired (content, style) batches gathered on the card, from a pack
-    and the pairings CSV of the folder datasets."""
+    and the pairings CSV of the folder datasets.  With a ``mesh`` the
+    whole corpus goes on the mesh's device (each rank's card under a
+    process group), so every rank gathers its own rows there."""
 
     def __init__(self, pack_path: str | Path, pairing_file: str | Path,
-                 crop: int = 128, device="cuda"):
-        self.device = resolve_device(device)
+                 crop: int = 128, device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         host = PackedPairDataset(pack_path, pairing_file, crop=crop,
                                  use_native=False)
         all_imgs, _ = host.pack.gather(np.arange(len(host.pack)),
@@ -75,14 +79,19 @@ class DeviceResidentPairs:
 
 class DevicePairLoader(EpochBatches):
     """Epoch iterator over DeviceResidentPairs, in ``BatchLoader``'s order
-    (``EpochBatches``)."""
+    (``EpochBatches``).  Over a dataset on a process group's mesh, each
+    rank gathers its slice of every global batch of ``batch_size``
+    (``process_local_indices``)."""
 
     def __init__(self, dataset: DeviceResidentPairs, batch_size: int = 128,
                  indices: Optional[Sequence[int]] = None,
                  shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False):
+        mesh = dataset.mesh
+        procs = ((mesh.index, mesh.size)
+                 if mesh is not None and mesh.distributed else (0, 1))
         super().__init__(dataset, batch_size, indices, shuffle, seed,
-                         drop_last)
+                         drop_last, *procs)
 
     def __iter__(self):
         for bidx in self._epoch_batches():

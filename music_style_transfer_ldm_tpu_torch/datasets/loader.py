@@ -6,7 +6,11 @@
   (``datasets/packed.py``), prefetched on a background thread;
 * ``process_local_indices``: each process's contiguous slice of a global
   batch, so that processes that share the seeded order load disjoint
-  rows (both loaders take ``process_index`` / ``process_count``);
+  rows (every loader takes ``process_index`` / ``process_count``);
+  ``EpochBatches.global_rows`` gives the global batch's real row count,
+  from which a trainer weights its rows: pad rows weigh 0 in the losses
+  and the BatchNorm statistics, as the JAX package's single-host
+  padded batches do (its multi-host loader lets the repeats count);
 * ``prepare_dataset``: the autoencoder phase's train and test loaders.
 """
 
@@ -97,6 +101,13 @@ class EpochBatches:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def global_rows(self, i: int) -> int:
+        """The real rows of the epoch's global batch ``i``: what a
+        process that loads only its slice (padded by repeats to ceil(n /
+        P) rows) needs to weight its rows
+        (``parallel/sharding.py batch_validity_weights``)."""
+        return min(self.batch_size, len(self.indices) - i * self.batch_size)
 
     def _epoch_batches(self) -> list:
         """The index lists of the next epoch (this process's slices)."""
@@ -203,17 +214,20 @@ class PackedBatchLoader(EpochBatches):
         return _background(self._fetch, self._epoch_batches(), self.prefetch)
 
 
-def prepare_dataset(config, root: str | None = None):
+def prepare_dataset(config, root: str | None = None,
+                    process_index: int = 0, process_count: int = 1):
     """(train_loader, test_loader) for the autoencoder phase: the images
     under ``root`` (default ``config.data.processed_dir``) split
     ``train_test_split(n, config.train.train_split, config.train.seed)``,
-    the train part shuffled every epoch, the test part in order."""
+    the train part shuffled every epoch, the test part in order; each
+    process loads its slice of every batch."""
     root = root or config.data.processed_dir
     ds = SpectrogramDataset(root, image_size=config.model.image_size)
     tr_idx, te_idx = train_test_split(len(ds), config.train.train_split,
                                       seed=config.train.seed)
+    procs = dict(process_index=process_index, process_count=process_count)
     train_loader = BatchLoader(ds, config.train.batch_size, indices=tr_idx,
-                               shuffle=True, seed=config.train.seed)
+                               shuffle=True, seed=config.train.seed, **procs)
     test_loader = BatchLoader(ds, config.train.batch_size, indices=te_idx,
-                              shuffle=False)
+                              shuffle=False, **procs)
     return train_loader, test_loader

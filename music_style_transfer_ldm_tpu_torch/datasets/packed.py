@@ -199,7 +199,10 @@ class PackedSpectrogramDataset:
         (a quarter of the host-to-card copy; the trainers normalise on the
         card).  With process_count > 1, ``indices`` is the GLOBAL batch
         and only this process's contiguous slice is gathered
-        (``datasets/loader.py process_local_indices``)."""
+        (``datasets/loader.py process_local_indices``, padded by repeats);
+        ``len(indices)`` is then the global real row count that weights
+        the slice's rows (``parallel/sharding.py
+        batch_validity_weights``)."""
         if process_count > 1:
             from music_style_transfer_ldm_tpu_torch.datasets.loader import (
                 process_local_indices,
@@ -297,10 +300,18 @@ class PackedPairDataset:
         (a, b) = self.gather_pairs([index])
         return (a[0], label1), (b[0], label2)
 
-    def gather_pairs(self, indices,
-                     dtype: str = "float32") -> tuple[np.ndarray, np.ndarray]:
+    def gather_pairs(self, indices, dtype: str = "float32",
+                     process_index: int = 0, process_count: int = 1
+                     ) -> tuple[np.ndarray, np.ndarray]:
         """-> (content [n, c, c, 1], style [n, c, c, 1]) in one gather of
-        all 2n images; dtype as in ``PackedSpectrogramDataset.gather``."""
+        all 2n images; dtype and the process slice of a global batch as
+        in ``PackedSpectrogramDataset.gather``."""
+        if process_count > 1:
+            from music_style_transfer_ldm_tpu_torch.datasets.loader import (
+                process_local_indices,
+            )
+            indices = process_local_indices(indices, process_index,
+                                            process_count)
         content, style = self.item_indices(indices)
         x, _ = self.pack.gather(np.concatenate([content, style]),
                                 dtype=dtype)

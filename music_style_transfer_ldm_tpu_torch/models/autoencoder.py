@@ -6,10 +6,15 @@ on the first two, BN only on the last.  Decoder: three k4 s2 transpose
 convs ending in tanh.  Parameter counts: encoder 111,840, decoder
 198,209.  ``train`` is explicit, as in flax: False (inference, the
 frozen encoder of LDM training) normalises with the running statistics,
-True with the batch's and updates the running ones.
+True with the batch's and updates the running ones.  In train mode
+``sample_weights`` ([B] validity, 0 for a pad row) keeps pad rows out of
+every BatchNorm's statistics and ``group`` takes them over every rank
+(``models/layers.py BatchNorm``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -32,10 +37,13 @@ class SpectrogramEncoder(nn.Module):
         self.conv2, self.bn2 = conv_s2(64, 128), _bn(128)
         self.conv3, self.bn3 = conv_s2(128, latent_dim), _bn(latent_dim)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x), train))
-        x = torch.relu(self.bn2(self.conv2(x), train))
-        return self.bn3(self.conv3(x), train)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                sample_weights: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        bn = dict(mask=sample_weights, group=group)
+        x = torch.relu(self.bn1(self.conv1(x), train, **bn))
+        x = torch.relu(self.bn2(self.conv2(x), train, **bn))
+        return self.bn3(self.conv3(x), train, **bn)
 
 
 class SpectrogramDecoder(nn.Module):
@@ -47,7 +55,10 @@ class SpectrogramDecoder(nn.Module):
         self.deconv2, self.bn2 = convT_k4(128, 64), _bn(64)
         self.deconv3 = convT_k4(64, 1)
 
-    def forward(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
-        z = torch.relu(self.bn1(self.deconv1(z), train))
-        z = torch.relu(self.bn2(self.deconv2(z), train))
+    def forward(self, z: torch.Tensor, train: bool = False,
+                sample_weights: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        bn = dict(mask=sample_weights, group=group)
+        z = torch.relu(self.bn1(self.deconv1(z), train, **bn))
+        z = torch.relu(self.bn2(self.deconv2(z), train, **bn))
         return torch.tanh(self.deconv3(z))

@@ -107,8 +107,9 @@ class LDM(nn.Module):
     def forward(self, x: torch.Tensor, style: torch.Tensor, t: torch.Tensor,
                 train: bool = False, frozen_encoder: bool = False,
                 style_drop_mask: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                noise: Optional[torch.Tensor] = None,
+                sample_weights: Optional[torch.Tensor] = None,
+                group=None) -> Dict[str, torch.Tensor]:
         """NHWC content x and style [B, 128, 128, 1], t [B] -> NHWC
         {z_t, noise, noise_pred, z_0, reconstructed}.
 
@@ -117,11 +118,16 @@ class LDM(nn.Module):
         drop) zeroes the style pyramid of those samples (classifier-free
         guidance training).  ``noise`` [B, 16, 16, latent_dim] (NHWC) is
         the q-sample draw as given; otherwise it is drawn here.
-        reconstructed is f32 in [0, 1]."""
+        sample_weights [B] (0 for a data-parallel pad row) and ``group``
+        (the data-parallel process group) go to every train-mode
+        BatchNorm: the decoder's, and the encoder's unless it is frozen
+        (then it normalises with its running statistics and needs
+        neither).  reconstructed is f32 in [0, 1]."""
         sched = self.schedule
         x = _nchw(x).to(self.device, torch.float32)
         style = _nchw(style).to(self.device, torch.float32)
-        z_0 = self.encoder(x, train=train and not frozen_encoder)
+        bn = dict(sample_weights=sample_weights, group=group)
+        z_0 = self.encoder(x, train=train and not frozen_encoder, **bn)
         emb = self.style_encoder(style)
         if style_drop_mask is not None:
             keep = (1.0 - style_drop_mask.float()).reshape(-1, 1, 1, 1)
@@ -132,7 +138,7 @@ class LDM(nn.Module):
         z_t = sched.q_sample_with_noise(z0, t, eps)
         noise_pred = self.unet(z_t, t, emb)
         z_0_pred = sched.predict_start_from_noise(z_t, t, noise_pred.float())
-        reconstructed = self.decoder(z_0_pred, train=train)
+        reconstructed = self.decoder(z_0_pred, train=train, **bn)
         reconstructed = (reconstructed.float() + 1.0) / 2.0
         return {"z_t": _nhwc(z_t), "noise": _nhwc(eps),
                 "noise_pred": _nhwc(noise_pred), "z_0": _nhwc(z_0),

@@ -1,0 +1,15 @@
+"""Data parallelism: one process per card for training, one process over
+a list of devices for serving.  An N-rank step on a global batch computes
+what one process computes on that whole batch; pad rows count in neither
+the losses nor the BatchNorm statistics."""
+
+from music_style_transfer_ldm_tpu_torch.parallel.distributed import (  # noqa: F401
+    initialize, process_info, shutdown,
+)
+from music_style_transfer_ldm_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, make_mesh,
+)
+from music_style_transfer_ldm_tpu_torch.parallel.sharding import (  # noqa: F401
+    batch_validity_weights, global_batch_from_local, pad_batch_to_multiple,
+    shard_batch, shard_params,
+)

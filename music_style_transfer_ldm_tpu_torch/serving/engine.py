@@ -19,10 +19,23 @@
   load.
 * With ``autoscale``, a 2x bucket is warmed on a side thread once the
   largest bucket keeps saturating while requests still queue.
+* With a ``mesh`` (``parallel/make_mesh`` over a list of devices; one
+  may repeat) there is one model replica per mesh device, the buckets
+  round up to multiples of the data axis, and each bucket's rows split
+  into contiguous blocks: every replica runs its block's whole transfer
+  program (encode, the scan sampler with kernel B, decode, NNLS,
+  Griffin-Lim), each on its own CUDA stream, all issued before any
+  result is read back, and the rows are reassembled in order.  The fused
+  route is bypassed (``uses_fused``), as in the JAX package.  A row's
+  result does not depend on its replica: its noise comes from its own
+  seed and Griffin-Lim's seeded phase field is the same everywhere.
+  Generation runs on the first replica.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import queue
 import threading
@@ -87,12 +100,27 @@ class EngineConfig:
 
 class InferenceEngine:
     """Warm engine over an LDM (``models.ldm.build_ldm`` or one filled by
-    ``interop.flax_weights.load_flax_variables``)."""
+    ``interop.flax_weights.load_flax_variables``); ``mesh`` spreads every
+    bucket over one replica per mesh device."""
 
     def __init__(self, ldm, config: Optional[EngineConfig] = None,
-                 audio: Optional[AudioConfig] = None):
-        self.ldm = ldm
+                 audio: Optional[AudioConfig] = None, mesh=None):
+        self.mesh = mesh
         self.config = config or EngineConfig()
+        self.replicas = [ldm]
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("the engine's mesh lists devices in one "
+                                 "process (make_mesh(devices=...))")
+            self.replicas = [
+                ldm if i == 0 and dev == ldm.device
+                else copy.deepcopy(ldm).to(dev)
+                for i, dev in enumerate(mesh.devices)]
+            n = mesh.size
+            self.config = dataclasses.replace(
+                self.config, batch_buckets=tuple(sorted({
+                    -(-b // n) * n for b in self.config.batch_buckets})))
+        self.ldm = self.replicas[0]
         if self.config.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.config.sampler!r}")
         if (self.config.guidance != 1.0
@@ -104,7 +132,10 @@ class InferenceEngine:
                                  if self.config.fused_bucket_max is not None
                                  else fused_bucket_max())
         self.audio = audio or AudioConfig()
-        self.device = ldm.device
+        self.device = self.ldm.device
+        self._streams = [torch.cuda.Stream(r.device)
+                         if r.device.type == "cuda" else None
+                         for r in self.replicas]
         self.ap = AudioProcessor(self.audio.sample_rate, self.audio.n_fft,
                                  self.audio.hop_length,
                                  nnls_iters=self.config.nnls_iters,
@@ -124,13 +155,44 @@ class InferenceEngine:
     # ---------------- the transfer program -----------------------------
 
     def uses_fused(self, bucket: int) -> bool:
-        """Whether a bucket of this size takes the fused kernel."""
-        return (self.config.sampler in ("fused", "fused-dpm++")
+        """Whether a bucket of this size takes the fused kernel (never
+        under a mesh)."""
+        return (self.mesh is None
+                and self.config.sampler in ("fused", "fused-dpm++")
                 and bucket <= self.fused_bucket_max)
 
     @torch.no_grad()
     def _transfer(self, content: torch.Tensor, style: torch.Tensor,
                   seeds: np.ndarray) -> dict:
+        """The transfer program on a bucket: on the one model, or split
+        over the replicas (each block on its replica's stream, all issued
+        before the first read back) and reassembled on the host."""
+        if self.mesh is None:
+            return self._transfer_on(self.ldm, content, style, seeds)
+        n = len(self.replicas)
+        per = content.shape[0] // n
+        current = (torch.cuda.current_stream(self.device)
+                   if self.device.type == "cuda" else None)
+        outs = []
+        for i, (ldm, stream) in enumerate(zip(self.replicas, self._streams)):
+            rows = slice(i * per, (i + 1) * per)
+            ctx = contextlib.nullcontext()
+            if stream is not None:
+                if current is not None:
+                    stream.wait_stream(current)
+                ctx = torch.cuda.stream(stream)
+            with ctx:
+                outs.append(self._transfer_on(
+                    ldm, content[rows].to(ldm.device, non_blocking=True),
+                    style[rows].to(ldm.device, non_blocking=True),
+                    seeds[rows]))
+        for stream in self._streams:
+            if stream is not None:
+                stream.synchronize()
+        return {k: torch.cat([o[k].cpu() for o in outs]) for k in outs[0]}
+
+    def _transfer_on(self, ldm, content: torch.Tensor, style: torch.Tensor,
+                     seeds: np.ndarray) -> dict:
         cfg = self.config
         fused = cfg.sampler in ("fused", "fused-dpm++")
         # 'fused-dpm++' keeps the second-order update on both routes.
@@ -138,12 +200,12 @@ class InferenceEngine:
             "ddim" if fused else cfg.sampler)
         if self.uses_fused(content.shape[0]):
             decoded = fused_content_style_transfer(
-                self.ldm, content, style, num_timesteps=cfg.steps,
+                ldm, content, style, num_timesteps=cfg.steps,
                 eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
                 seeds=seeds)
         else:
             decoded, _ = transfer_decoded(
-                self.ldm, content, style, num_timesteps=cfg.steps,
+                ldm, content, style, num_timesteps=cfg.steps,
                 eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
                 guidance=cfg.guidance, seeds=seeds)
         if cfg.match_level:

@@ -25,8 +25,8 @@ One stage step (the JAX package's ``_stage_step_fn``):
   call (``models/ldm.py _denoise_fn``'s [cond; uncond] layout);
 * ``solve_x0_target`` inverts one DDIM step t -> s onto the teacher's
   end point, and the student's x0 is held to it by the truncated-SNR-
-  weighted MSE (max(ab_t / (1 - ab_t), 1)), summed and divided by the
-  batch size (the port's loader never pads);
+  weighted MSE (max(ab_t / (1 - ab_t), 1)), summed over the real rows
+  and divided by their count (pad rows weigh 0: the JAX step's ``w``);
 * a fresh Adam per stage over the UNet's parameters only: encoder,
   decoder and style encoder stay bit-identical.
 
@@ -36,8 +36,15 @@ the target algebra runs in f32 outside autocast (its denominator
 sqrt(ab_s) - c sqrt(ab_t) is small at low noise).  On the CPU
 everything is f32.
 
-The port runs on one card: there is no mesh (``parallel/`` is not
-ported yet).
+Data parallelism (``parallel/``): under a process group each rank takes
+its slice of every global batch.  The draws are made for the whole padded
+global batch from (seed, stage, step) and each rank keeps its rows; a
+rank's loss is world x (its weighted sum) / max(global sum of weights,
+1), and the UNet runs in DistributedDataParallel (as the trainers'
+modules do), whose gradient mean over the ranks is then the gradient of
+the global loss, so a step equals the one-process step on the global
+batch.  Rank 0 alone writes the in-flight saves and the students, with a
+barrier after each.
 """
 
 from __future__ import annotations
@@ -57,14 +64,19 @@ from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
     transfer_time_grid,
 )
 from music_style_transfer_ldm_tpu_torch.models.ldm import LDM, _denoise_fn
+from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+    DataParallel, all_reduce_mean, all_reduce_sum, barrier, is_main,
+)
+from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+    shard_params, step_rows, training_mesh,
+)
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
 from music_style_transfer_ldm_tpu_torch.training.optim import make_optimizer
 from music_style_transfer_ldm_tpu_torch.training.state import (
-    TrainState, as_unit_images, prefetch_to_device, to_device,
+    TrainState, as_unit_images, prefetch_to_device,
 )
 from music_style_transfer_ldm_tpu_torch.training.train_ldm import step_seed
-from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 
 def ddim_step(z_t: torch.Tensor, eps_hat: torch.Tensor, ab_t: torch.Tensor,
@@ -160,14 +172,17 @@ def _save_inflight(path: Path, student: LDM, optimizer, meta: dict) -> None:
 
 
 class ProgressiveDistiller:
-    """Halve the transfer grid stage by stage on one card.
+    """Halve the transfer grid stage by stage, on one card or one card
+    per rank (``mesh`` as in ``LDMTrainer``).
 
     Consumes the pair loader's ((content, _), (style, _)) batches, as
     ``training/train_ldm.py`` does."""
 
-    def __init__(self, config, t_max: Optional[int] = None, device="cuda"):
+    def __init__(self, config, mesh=None, t_max: Optional[int] = None,
+                 device="cuda"):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = training_mesh(config.mesh, mesh, device)
+        self.device = self.mesh.device
         self.compute_dtype = (getattr(torch, config.train.compute_dtype)
                               if self.device.type == "cuda"
                               else torch.float32)
@@ -176,6 +191,9 @@ class ProgressiveDistiller:
         self.t_max = int(t_max if t_max is not None
                          else config.diffusion.transfer_timesteps)
         self.generator = torch.Generator(device=self.device)
+        # the student's UNet as a step runs it: DistributedDataParallel
+        # under a process group
+        self.train_model = DataParallel(self.mesh)
 
     def _autocast(self):
         if self.compute_dtype == torch.float32:
@@ -200,43 +218,58 @@ class ProgressiveDistiller:
                                     learning_rate=lr))
 
     def step(self, student: LDM, stage: Stage, content: torch.Tensor,
-             style: torch.Tensor, seed: int, step: int) -> torch.Tensor:
-        """One optimizer step of ``stage`` on a batch, with the draws of
-        (seed, stage, step); returns the loss, on the device."""
+             style: torch.Tensor, seed: int, step: int,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step of ``stage`` on this rank's rows (``weights``
+        their validity, None when none is padded), with the draws of
+        (seed, stage, step); returns the global loss, on the device."""
         lat = self.config.model.image_size // 8
         segment, noise = self.draws(
             seed, stage.index, step, content.shape[0], stage.n_student,
             (lat, lat, self.config.model.latent_dim))
+        denominator = None
+        if self.mesh.distributed and weights is not None:
+            total = all_reduce_sum(weights.float().sum(), self.mesh.group)
+            denominator = torch.clamp(total, min=1.0) / self.mesh.size
         stage.optimizer.zero_grad(set_to_none=True)
         loss = self.stage_loss(student, stage.teacher, stage.teacher_grid,
                                stage.factor, stage.guidance, content, style,
-                               segment, noise)
+                               segment, noise, weights, denominator)
         loss.backward()
         stage.optimizer.step()
-        return loss.detach()
+        return all_reduce_mean(loss.detach(), self.mesh)
 
     def draws(self, seed: int, stage: int, step: int, batch: int,
               n_student: int, latent_shape: Sequence[int]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(segment [B] in [0, n_student), NHWC noise [B, *latent_shape])
-        of one step, from a generator seeded by (seed, stage, step): the
-        counterpart of the JAX package's fold_in of stage * 1e6 + step
-        into its base key."""
+        of one step for this rank's ``batch`` rows, from a generator
+        seeded by (seed, stage, step) (the counterpart of the JAX
+        package's fold_in of stage * 1e6 + step into its base key): drawn
+        for rows 0 .. max(configured batch, padded global batch) - 1
+        (row i of a global batch takes draw i), this rank's rows kept."""
         gen = self.generator
+        n = max(self.config.train.batch_size, batch * self.mesh.size)
+        rows = slice(self.mesh.index * batch, (self.mesh.index + 1) * batch)
         gen.manual_seed(step_seed(seed + 777, stage * 1_000_000 + step))
-        segment = torch.randint(0, n_student, (batch,), device=self.device,
+        segment = torch.randint(0, n_student, (n,), device=self.device,
                                 generator=gen)
-        noise = torch.randn((batch, *latent_shape), device=self.device,
+        noise = torch.randn((n, *latent_shape), device=self.device,
                             generator=gen)
-        return segment, noise
+        return segment[rows], noise[rows]
 
     def stage_loss(self, student: LDM, teacher: LDM,
                    teacher_grid: np.ndarray, factor: int, guidance: float,
                    content: torch.Tensor, style: torch.Tensor,
-                   segment: torch.Tensor, noise: torch.Tensor
+                   segment: torch.Tensor, noise: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   denominator: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
         """The student's loss on one batch (NHWC images in [0, 1] or
-        uint8, segment [B], NHWC noise), with the graph to its UNet."""
+        uint8, segment [B], NHWC noise), with the graph to its UNet: the
+        weighted sum over the rows (``weights`` [B] validity, default
+        ones) divided by ``denominator``, by default max(sum of weights,
+        1) (the batch size without weights)."""
         dev = self.device
         content = as_unit_images(content).float().permute(0, 3, 1, 2)
         style = as_unit_images(style).float().permute(0, 3, 1, 2)
@@ -268,12 +301,17 @@ class ProgressiveDistiller:
             # Truncated-SNR weighting (Salimans-Ho eq. 9), per sample.
             ab_t = ab[t]
             w_snr = torch.clamp(ab_t / (1.0 - ab_t), min=1.0)
+            if weights is not None:
+                w_snr = w_snr * weights.to(dev).float()
+        if denominator is None:
+            denominator = (batch if weights is None
+                           else torch.clamp(weights.float().sum(), min=1.0))
         with self._autocast():
-            eps_s = student.unet(z_t, t, emb)
+            eps_s = self.train_model(student.unet)(z_t, t, emb)
         x0_s = ((z_t - torch.sqrt(1.0 - ab4(t)) * eps_s.float())
                 / torch.sqrt(ab4(t)))
         per = torch.mean(torch.square(x0_s - x0_target), dim=(1, 2, 3))
-        return torch.sum(w_snr * per) / batch
+        return torch.sum(w_snr * per) / denominator
 
     # ---------------- the cascade ------------------------------------------
 
@@ -308,16 +346,21 @@ class ProgressiveDistiller:
         students = student_steps(stages)
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        logger = MetricLogger(out_dir / "distill_metrics.csv")
-        dev = self.device
-        student = copy.deepcopy(model).to(device=dev, dtype=torch.float32)
+        dev, mesh = self.device, self.mesh
+        main = is_main(mesh)
+        logger = (MetricLogger(out_dir / "distill_metrics.csv") if main
+                  else None)
+        student = shard_params(copy.deepcopy(model).to(
+            device=dev, dtype=torch.float32), mesh)
         student.requires_grad_(False)
         student.unet.requires_grad_(True)
         history = []
 
-        def place(batch):
-            (content, _), (style, _) = batch
-            return to_device(content, dev), to_device(style, dev)
+        def place(item):
+            i, ((content, _), (style, _)) = item
+            (content, style), w = step_rows((content, style), mesh,
+                                            train_loader, i)
+            return content, style, w
 
         for stage_idx, n_teacher in enumerate(stages):
             n_student = students[stage_idx]
@@ -337,9 +380,10 @@ class ProgressiveDistiller:
                                                  stage.optimizer)).step
                         head_override = (float(meta["head"])
                                          if done >= 20 else None)
-                        print(f"  distill {n_teacher}->{n_student}: "
-                              f"resumed in-flight at step {done}/"
-                              f"{steps_per_stage}", flush=True)
+                        if main:
+                            print(f"  distill {n_teacher}->{n_student}: "
+                                  f"resumed in-flight at step {done}/"
+                                  f"{steps_per_stage}", flush=True)
                 except ckpt_lib.LOAD_ERRORS + (KeyError,) as e:
                     print(f"  distill: in-flight restore failed "
                           f"({e!r}); restarting stage", flush=True)
@@ -350,13 +394,14 @@ class ProgressiveDistiller:
 
             while done < steps_per_stage:
                 made_progress = False
-                for content, style in prefetch_to_device(train_loader,
-                                                         place):
+                for content, style, w in prefetch_to_device(
+                        enumerate(train_loader), place):
                     made_progress = True
                     losses.append(self.step(student, stage, content, style,
-                                            seed, done))
+                                            seed, done, w))
                     done += 1
-                    if done % 100 == 0 or done == steps_per_stage:
+                    if main and (done % 100 == 0
+                                 or done == steps_per_stage):
                         print(f"  distill {n_teacher}->{n_student} step "
                               f"{done}/{steps_per_stage} "
                               f"loss {float(losses[-1]):.5f} "
@@ -367,9 +412,14 @@ class ProgressiveDistiller:
                         head = (head_override if head_override is not None
                                 else float(torch.stack(losses[:20]).mean())
                                 if len(losses) >= 20 else 0.0)
-                        _save_inflight(inflight, student, stage.optimizer, {
-                            "done": done, "teacher_steps": n_teacher,
-                            "student_steps": n_student, "head": head})
+                        if main:
+                            _save_inflight(inflight, student,
+                                           stage.optimizer, {
+                                               "done": done,
+                                               "teacher_steps": n_teacher,
+                                               "student_steps": n_student,
+                                               "head": head})
+                        barrier(mesh)
                     if done >= steps_per_stage:
                         break
                 if not made_progress:
@@ -388,20 +438,22 @@ class ProgressiveDistiller:
             head = (head_override if head_override is not None
                     else float(np.mean(losses[:20])) if losses else 0.0)
             tail = float(np.mean(losses[-20:])) if losses else head
-            logger.log(epoch=stage_idx, teacher_steps=n_teacher,
-                       student_steps=n_student, steps=done,
-                       loss_head=head, loss_tail=tail,
-                       seconds=time.time() - t0)
             history.append({"teacher_steps": n_teacher,
                             "student_steps": n_student,
                             "loss_head": head, "loss_tail": tail})
-            ckpt_lib.save_checkpoint(
-                out_dir / f"distilled_{n_student}.pt", student,
-                distill={"steps": n_student, "t_max": self.t_max,
-                         "stages": stages[:stage_idx + 1],
-                         "guidance": guidance})
-            if inflight.exists():   # the stage landed; drop the partial save
-                inflight.unlink()
+            if main:
+                logger.log(epoch=stage_idx, teacher_steps=n_teacher,
+                           student_steps=n_student, steps=done,
+                           loss_head=head, loss_tail=tail,
+                           seconds=time.time() - t0)
+                ckpt_lib.save_checkpoint(
+                    out_dir / f"distilled_{n_student}.pt", student,
+                    distill={"steps": n_student, "t_max": self.t_max,
+                             "stages": stages[:stage_idx + 1],
+                             "guidance": guidance})
+                if inflight.exists():   # the stage landed; drop the save
+                    inflight.unlink()
+            barrier(mesh)
 
         info = {"steps": students[-1], "t_max": self.t_max,
                 "stages": stages, "guidance": guidance, "history": history}

@@ -24,6 +24,15 @@ step on the card takes the per-layer route (kernel D's forward and its
 target-side backward, ``losses/vggish.py resolve_impl``) and validation
 the trunk kernel's value-only variant (kernel E); LPIPS is plain
 PyTorch.
+
+Data parallelism (``parallel/``): under a process group each rank
+trains on its slice of every global batch.  Pad rows weigh 0 in the loss
+and in every BatchNorm's statistics, which the layers take over every
+rank; the loss backpropagated is world x (the rank's weighted sum) /
+(the global sum of weights), so DistributedDataParallel's gradient mean
+is the gradient of the global loss, and validation renormalises the
+same way.  The reported losses are the global ones, so the plateau
+scheduler steps every rank alike; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -42,18 +51,34 @@ from music_style_transfer_ldm_tpu_torch.losses.feature import (
 from music_style_transfer_ldm_tpu_torch.models.autoencoder import (
     SpectrogramDecoder, SpectrogramEncoder,
 )
+from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+    DataParallel, all_reduce_mean, barrier, global_loss_weights, is_main,
+)
+from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+    step_rows, training_mesh,
+)
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
 from music_style_transfer_ldm_tpu_torch.training.optim import (
     make_optimizer, plateau_init, plateau_update, set_learning_rate,
 )
 from music_style_transfer_ldm_tpu_torch.training.state import (
-    TrainState, as_unit_images, prefetch_to_device, to_device,
+    TrainState, as_unit_images, prefetch_to_device,
 )
-from music_style_transfer_ldm_tpu_torch.utils.chips import (
-    exact_float32, resolve_device,
-)
+from music_style_transfer_ldm_tpu_torch.utils.chips import exact_float32
 from music_style_transfer_ldm_tpu_torch.utils.profiling import StallWatchdog
+
+
+class Autoencoder(nn.ModuleDict):
+    """``encoder`` and ``decoder`` in one module whose forward is the
+    pair's (what DistributedDataParallel wraps)."""
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                sample_weights: Optional[torch.Tensor] = None, group=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NCHW x -> (z, recon in [-1, 1]), NCHW."""
+        z = self["encoder"](x, train, sample_weights, group)
+        return z, self["decoder"](z, train, sample_weights, group)
 
 
 def _mean(losses, device) -> torch.Tensor:
@@ -70,13 +95,15 @@ class AETrainer:
     compression metric (``auto``: the kernels on the card; ``plain``
     forces the plain versions, for comparisons).  ``feature_params`` is
     a state dict of the metric's module (transplanted weights); without
-    it the metric is a random trunk from seed 0."""
+    it the metric is a random trunk from seed 0.  ``mesh`` as in
+    ``LDMTrainer``."""
 
-    def __init__(self, config, perceptual: bool = True, device="cuda",
-                 feature_impl: str = "auto",
+    def __init__(self, config, mesh=None, perceptual: bool = True,
+                 device="cuda", feature_impl: str = "auto",
                  feature_params: Optional[dict] = None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = training_mesh(config.mesh, mesh, device)
+        self.device = self.mesh.device
         ct = config.train
         self.feature = (build_feature_metric(
             ct.compression_feature_extractor, torch.float32, seed=0,
@@ -87,6 +114,8 @@ class AETrainer:
         self.plateau = plateau_init(ct.learning_rate, factor=ct.lr_factor,
                                     patience=ct.lr_patience,
                                     min_lr=ct.lr_min)
+        # the module a step runs: DistributedDataParallel under a group
+        self.train_model = DataParallel(self.mesh)
 
     # ---------------- state ------------------------------------------------
 
@@ -97,8 +126,8 @@ class AETrainer:
         latent = self.config.model.latent_dim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = nn.ModuleDict({"encoder": SpectrogramEncoder(latent),
-                                   "decoder": SpectrogramDecoder(latent)})
+            model = Autoencoder({"encoder": SpectrogramEncoder(latent),
+                                 "decoder": SpectrogramDecoder(latent)})
         model = model.to(self.device)
         optimizer = make_optimizer("adamw", list(model.parameters()),
                                    self.config.train.learning_rate)
@@ -106,40 +135,54 @@ class AETrainer:
 
     # ---------------- one step ---------------------------------------------
 
-    def _forward(self, model, x: torch.Tensor, train: bool
+    def _forward(self, model, x: torch.Tensor, train: bool,
+                 weights: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC x in [0, 1] -> NHWC (z, recon in [-1, 1]); ``train``
-        normalises with the batch's statistics and updates the running
-        ones."""
-        z = model.encoder(x.permute(0, 3, 1, 2), train=train)
-        recon = model.decoder(z, train=train)
+        normalises with the batch's statistics (the rows ``weights``
+        keeps, over every rank) and updates the running ones."""
+        group = self.mesh.group if train else None
+        z, recon = model(x.permute(0, 3, 1, 2), train, weights, group)
         return z.permute(0, 2, 3, 1), recon.permute(0, 2, 3, 1)
 
-    def _loss(self, model, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """The compression loss of one NHWC batch (uint8 or [0, 1])."""
+    def _loss(self, model, x: torch.Tensor, train: bool,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The compression loss of one NHWC batch (uint8 or [0, 1]), pad
+        rows (``weights`` 0) left out; under a process group this rank's
+        share, whose mean over the ranks is the global loss."""
         x = as_unit_images(x)
-        z, recon = self._forward(model, x, train)
+        w, scale = global_loss_weights(weights, self.mesh)
+        z, recon = self._forward(model, x, train, weights)
         recon01 = (recon + 1.0) / 2.0
         feature = self.feature.distance if self.feature is not None else None
-        return compression_loss(x, recon01, z, feature,
-                                self.perceptual_weight, self.kl_weight)
+        loss = compression_loss(x, recon01, z, feature,
+                                self.perceptual_weight, self.kl_weight,
+                                weights=w)
+        return loss if scale is None else loss * scale
 
-    def _step(self, state: TrainState, x: torch.Tensor
+    def _step(self, state: TrainState, x: torch.Tensor,
+              weights: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, torch.Tensor]:
-        """One AdamW step; the loss stays on the device."""
+        """One AdamW step on this rank's rows; the (global) loss stays on
+        the device."""
         state.optimizer.zero_grad(set_to_none=True)
         with exact_float32(self.device):
-            loss = self._loss(state.model, x, train=True)
+            loss = self._loss(self.train_model(state.model), x, train=True,
+                              weights=weights)
             loss.backward()
         state.optimizer.step()
         return TrainState(state.model, state.optimizer,
-                          state.step + 1), loss.detach()
+                          state.step + 1), all_reduce_mean(loss.detach(),
+                                                           self.mesh)
 
     @torch.no_grad()
-    def _eval(self, state: TrainState, x: torch.Tensor) -> torch.Tensor:
-        """The loss on the running statistics, no gradient, no update."""
+    def _eval(self, state: TrainState, x: torch.Tensor,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The (global) loss on the running statistics, no gradient, no
+        update."""
         with exact_float32(self.device):
-            return self._loss(state.model, x, train=False)
+            return all_reduce_mean(self._loss(state.model, x, train=False,
+                                              weights=weights), self.mesh)
 
     # ---------------- epochs -----------------------------------------------
 
@@ -159,25 +202,35 @@ class AETrainer:
         if resume_from is not None:
             state = ckpt_lib.restore_train_state(resume_from, state)
             start_epoch = state.step // max(len(train_loader), 1)
-        logger = MetricLogger(out_dir / "metrics.csv",
-                              resume=resume_from is not None,
-                              truncate_from_epoch=start_epoch)
-        dev = self.device
+        main = is_main(self.mesh)
+        logger = (MetricLogger(out_dir / "metrics.csv",
+                               resume=resume_from is not None,
+                               truncate_from_epoch=start_epoch)
+                  if main else None)
+        dev, mesh = self.device, self.mesh
 
-        def place(batch):
-            x = batch[0] if isinstance(batch, tuple) else batch
-            return to_device(x, dev)
+        def placer(loader):
+            def place(item):
+                i, batch = item
+                x = batch[0] if isinstance(batch, tuple) else batch
+                x, w = step_rows(x, mesh, loader, i)
+                # weights by keyword only when given: one process
+                # without pad rows calls _step and _eval as before
+                return x, {} if w is None else {"weights": w}
+            return place
 
         best_val = float("inf")
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             with StallWatchdog(timeout_s=600, context=f"AE epoch {epoch}"):
                 train_losses = []
-                for x in prefetch_to_device(train_loader, place):
-                    state, loss = self._step(state, x)
+                for x, kw in prefetch_to_device(enumerate(train_loader),
+                                                placer(train_loader)):
+                    state, loss = self._step(state, x, **kw)
                     train_losses.append(loss)
-                val_losses = [self._eval(state, x)
-                              for x in prefetch_to_device(val_loader, place)]
+                val_losses = [self._eval(state, x, **kw)
+                              for x, kw in prefetch_to_device(
+                                  enumerate(val_loader), placer(val_loader))]
                 # one host read per epoch: a read per step would stall
                 # the launch queue
                 train_loss, val_loss = torch.stack(
@@ -185,16 +238,24 @@ class AETrainer:
                 ).tolist()
             self.plateau = plateau_update(self.plateau, val_loss)
             set_learning_rate(state.optimizer, self.plateau.lr)
-            logger.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
-                       lr=self.plateau.lr, seconds=time.time() - t0)
+            if main:
+                logger.log(epoch=epoch, train_loss=train_loss,
+                           val_loss=val_loss, lr=self.plateau.lr,
+                           seconds=time.time() - t0)
             if val_loss < best_val:
                 best_val = val_loss
-                ckpt_lib.save_autoencoder(out_dir / "pretrained.pt",
-                                          state.model.encoder,
-                                          state.model.decoder)
-        logger.plot(out_dir / "autoencoder_loss.png",
-                    ["train_loss", "val_loss"])
-        ckpt_lib.save_autoencoder(out_dir / "pretrained_final.pt",
-                                  state.model.encoder, state.model.decoder)
-        ckpt_lib.save_train_state(out_dir / "train_state_final.pt", state)
+                if main:
+                    ckpt_lib.save_autoencoder(out_dir / "pretrained.pt",
+                                              state.model.encoder,
+                                              state.model.decoder)
+                barrier(mesh)
+        if main:
+            logger.plot(out_dir / "autoencoder_loss.png",
+                        ["train_loss", "val_loss"])
+            ckpt_lib.save_autoencoder(out_dir / "pretrained_final.pt",
+                                      state.model.encoder,
+                                      state.model.decoder)
+            ckpt_lib.save_train_state(out_dir / "train_state_final.pt",
+                                      state)
+        barrier(mesh)
         return state

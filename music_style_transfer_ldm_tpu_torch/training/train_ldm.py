@@ -22,6 +22,17 @@ the gradient on, through kernel E with grad.  With
 ``compression_feature_extractor="vggish"`` the compression term's
 perceptual distance needs the gradient of its target input (the
 reconstruction), so it takes the per-layer route (kernel D).
+
+Data parallelism (``parallel/``): under a process group each rank holds
+one card and its slice of every global batch.  The step draws t, the
+noise and the style-drop mask for the whole global batch (row i takes
+draw i) and keeps its rows, so an N-rank step computes what one process
+computes on that batch.  Pad rows weigh 0 in the losses and in the decoder's
+BatchNorm statistics, which the layer takes over every rank; the loss
+backpropagated is world x (the rank's weighted sum) / (the global sum of
+weights), so DistributedDataParallel's gradient mean is the gradient of
+the global loss.  Rank 0 alone writes checkpoints, ``metrics.csv`` and
+plots.
 """
 
 from __future__ import annotations
@@ -40,6 +51,12 @@ from music_style_transfer_ldm_tpu_torch.losses.feature import (
     build_feature_metric,
 )
 from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
+from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+    DataParallel, all_reduce_mean, barrier, global_loss_weights, is_main,
+)
+from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+    step_rows, training_mesh,
+)
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
 from music_style_transfer_ldm_tpu_torch.training.optim import (
@@ -48,9 +65,8 @@ from music_style_transfer_ldm_tpu_torch.training.optim import (
 )
 from music_style_transfer_ldm_tpu_torch.training.state import (
     TrainState, as_unit_images, ema_params_of, ema_update,
-    prefetch_to_device, to_device,
+    prefetch_to_device,
 )
-from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 from music_style_transfer_ldm_tpu_torch.utils.profiling import StallWatchdog
 
 _MASK64 = (1 << 64) - 1
@@ -79,14 +95,17 @@ class LDMTrainer:
     versions, for comparisons).  ``compression_feature_params`` and
     ``style_feature_params`` are transplanted weights of the two metrics
     (state dicts of their modules); without them each is a random trunk
-    from its seed."""
+    from its seed.  ``mesh`` (``parallel/``): by default the process
+    group's ranks when one is started (each rank on its own card, which
+    ``device`` then does not change), else ``device`` alone."""
 
-    def __init__(self, config, perceptual: bool = True, device="cuda",
-                 feature_impl: str = "auto",
+    def __init__(self, config, mesh=None, perceptual: bool = True,
+                 device="cuda", feature_impl: str = "auto",
                  compression_feature_params: Optional[dict] = None,
                  style_feature_params: Optional[dict] = None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = training_mesh(config.mesh, mesh, device)
+        self.device = self.mesh.device
         ct = config.train
         on_card = self.device.type == "cuda"
         self.compute_dtype = (getattr(torch, ct.compute_dtype) if on_card
@@ -108,6 +127,8 @@ class LDMTrainer:
                                     patience=ct.ldm_lr_patience,
                                     min_lr=ct.lr_min)
         self.generator = torch.Generator(device=self.device)
+        # the module a step runs: DistributedDataParallel under a group
+        self.train_model = DataParallel(self.mesh)
 
     # ---------------- state ------------------------------------------------
 
@@ -144,65 +165,99 @@ class LDMTrainer:
 
     def _losses(self, model, content: torch.Tensor, style: torch.Tensor,
                 t: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                style_drop_mask: Optional[torch.Tensor] = None
+                style_drop_mask: Optional[torch.Tensor] = None,
+                weights: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, metrics) of one batch; NHWC images in [0, 1] (or uint8),
-        t [B], noise NHWC latents.  Updates the decoder's BatchNorm
-        running statistics (train mode), as the step does."""
+        t [B], noise NHWC latents, ``weights`` [B] validity (0 for a pad
+        row).  Updates the decoder's BatchNorm running statistics (train
+        mode), as the step does.  Under a process group the values are
+        this rank's share: their mean over the ranks is the global
+        weighted loss."""
         content = as_unit_images(content)
         style = as_unit_images(style)
+        w, scale = global_loss_weights(weights, self.mesh)
         with self._autocast():
             out = model(content, style, t, train=True, frozen_encoder=True,
-                        style_drop_mask=style_drop_mask, noise=noise)
+                        style_drop_mask=style_drop_mask, noise=noise,
+                        sample_weights=weights, group=self.mesh.group)
             comp = (self.compression_feature.distance
                     if self.compression_feature is not None else None)
-            denoising = diffusion_loss(out["noise_pred"], out["noise"])
+            denoising = diffusion_loss(out["noise_pred"], out["noise"], w)
             compression = compression_loss(
                 content, out["reconstructed"], out["z_0"], comp,
-                self.perceptual_weight, self.kl_weight)
+                self.perceptual_weight, self.kl_weight, weights=w)
             if self.style_feature is not None:
                 with torch.set_grad_enabled(
                         torch.is_grad_enabled()
                         and not self.style_loss_stop_gradient):
                     style_l = style_loss(out["reconstructed"], style,
-                                         self.style_feature.distance)
+                                         self.style_feature.distance, w)
             else:
                 style_l = torch.zeros((), device=content.device)
         total = compression + denoising + self.style_loss_weight * style_l
         metrics = {"total_loss": total, "compression_loss": compression,
                    "denoising_loss": denoising, "style_loss": style_l}
+        if scale is not None:
+            total = total * scale
+            metrics = {k: v * scale for k, v in metrics.items()}
         return total, {k: v.detach().float() for k, v in metrics.items()}
+
+    def draws(self, step: int, batch: int,
+              t: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None,
+              style_drop_mask: Optional[torch.Tensor] = None):
+        """(t, noise, style-drop mask or None) of step ``step`` for this
+        rank's ``batch`` rows: those not given are drawn, in that order,
+        from a generator seeded by ``step_seed(seed, step)`` for rows 0 ..
+        max(configured batch, padded global batch) - 1, and this rank's
+        rows kept.  Row i of a global batch takes draw i whatever the
+        batch's length, so a short batch split over ranks with pad rows
+        draws what one process draws for it unpadded."""
+        cfg, dev, gen = self.config, self.device, self.generator
+        n = max(cfg.train.batch_size, batch * self.mesh.size)
+        rows = slice(self.mesh.index * batch, (self.mesh.index + 1) * batch)
+        gen.manual_seed(step_seed(cfg.train.seed, step))
+        if t is None:
+            t = torch.randint(0, cfg.diffusion.num_timesteps, (n,),
+                              device=dev, generator=gen)[rows]
+        if noise is None:
+            lat = cfg.model.image_size // 8
+            noise = torch.randn((n, lat, lat, cfg.model.latent_dim),
+                                device=dev, generator=gen)[rows]
+        p_drop = float(cfg.train.style_dropout)
+        if style_drop_mask is None and p_drop > 0.0:
+            style_drop_mask = (torch.rand(n, device=dev, generator=gen)
+                               < p_drop).float()[rows]
+        return t, noise, style_drop_mask
 
     def _step(self, state: TrainState, content: torch.Tensor,
               style: torch.Tensor, t: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None,
-              style_drop_mask: Optional[torch.Tensor] = None
+              style_drop_mask: Optional[torch.Tensor] = None,
+              weights: Optional[torch.Tensor] = None
               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimizer step; t, noise and the style-drop mask are drawn
-        unless given, from the trainer's generator seeded by
-        ``step_seed(seed, state.step)``.  Metrics stay on the device."""
-        cfg = self.config
-        batch, dev, gen = content.shape[0], self.device, self.generator
-        gen.manual_seed(step_seed(cfg.train.seed, state.step))
-        if t is None:
-            t = torch.randint(0, cfg.diffusion.num_timesteps, (batch,),
-                              device=dev, generator=gen)
-        if noise is None:
-            lat = cfg.model.image_size // 8
-            noise = torch.randn((batch, lat, lat, cfg.model.latent_dim),
-                                device=dev, generator=gen)
-        p_drop = float(cfg.train.style_dropout)
-        if style_drop_mask is None and p_drop > 0.0:
-            style_drop_mask = (torch.rand(batch, device=dev, generator=gen)
-                               < p_drop).float()
+        """One optimizer step on this rank's rows (``weights`` their
+        validity, None when none is padded); t, noise and the style-drop
+        mask are this rank's rows of ``draws`` unless given.  The metrics
+        are the global batch's, on the device."""
+        t, noise, style_drop_mask = self.draws(
+            state.step, content.shape[0], t, noise, style_drop_mask)
         state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self._losses(state.model, content, style, t, noise,
-                                      style_drop_mask)
+        # weights by keyword only when given: one process without pad
+        # rows calls _losses exactly as before
+        kw = {} if weights is None else {"weights": weights}
+        total, metrics = self._losses(self.train_model(state.model), content,
+                                      style, t, noise, style_drop_mask, **kw)
         total.backward()
         state.optimizer.step()
         ema = state.ema_params
         if ema is not None:
             ema = ema_update(ema, state.model, self.ema_decay, state.step)
+        if self.mesh.distributed:
+            vec = all_reduce_mean(torch.stack(
+                [metrics[k] for k in METRIC_KEYS]), self.mesh)
+            metrics = dict(zip(METRIC_KEYS, vec.unbind()))
         return TrainState(state.model, state.optimizer, state.step + 1,
                           ema), metrics
 
@@ -212,16 +267,21 @@ class LDMTrainer:
                     ) -> Tuple[TrainState, Dict[str, float]]:
         """One pass over ``loader``; per-step metrics stay on the device
         and are read once, at the end (a read per step would stall the
-        launch queue)."""
-        dev = self.device
+        launch queue).  Under a process group the loader yields this
+        process's slice of each global batch (``process_count`` = the
+        world size), or whole global batches that are split here."""
+        mesh = self.mesh
 
-        def place(batch):
-            (content, _), (style, _) = batch
-            return to_device(content, dev), to_device(style, dev)
+        def place(item):
+            i, ((content, _), (style, _)) = item
+            (content, style), w = step_rows((content, style), mesh, loader,
+                                            i)
+            return content, style, w
 
         collected = []
-        for content, style in prefetch_to_device(loader, place):
-            state, metrics = self._step(state, content, style)
+        for content, style, w in prefetch_to_device(enumerate(loader),
+                                                    place):
+            state, metrics = self._step(state, content, style, weights=w)
             collected.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
         if not collected:
             return state, {}
@@ -238,7 +298,8 @@ class LDMTrainer:
         plots where matplotlib exists), ``ldm_final.pt`` at the end.
         ``pretrained_autoencoder`` goes to ``init_state`` when no state is
         given.  ``resume_from`` continues from a train-state checkpoint,
-        counting epochs from its step."""
+        counting epochs from its step (every rank loads it onto its own
+        card); rank 0 alone writes, with a barrier after each write."""
         cfg = self.config.train
         num_epochs = num_epochs or cfg.num_epochs
         out_dir = Path(out_dir)
@@ -248,9 +309,11 @@ class LDMTrainer:
         if resume_from is not None:
             state = ckpt_lib.restore_train_state(resume_from, state)
             start_epoch = state.step // max(len(train_loader), 1)
-        logger = MetricLogger(out_dir / "metrics.csv",
-                              resume=resume_from is not None,
-                              truncate_from_epoch=start_epoch)
+        main = is_main(self.mesh)
+        logger = (MetricLogger(out_dir / "metrics.csv",
+                               resume=resume_from is not None,
+                               truncate_from_epoch=start_epoch)
+                  if main else None)
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             with StallWatchdog(timeout_s=600, context=f"LDM epoch {epoch} "
@@ -258,13 +321,19 @@ class LDMTrainer:
                 state, avgs = self.train_epoch(state, train_loader)
             self.plateau = plateau_update(self.plateau, avgs["total_loss"])
             set_learning_rate(state.optimizer, self.plateau.lr)
-            logger.log(epoch=epoch, lr=self.plateau.lr,
-                       seconds=time.time() - t0, **avgs)
+            if main:
+                logger.log(epoch=epoch, lr=self.plateau.lr,
+                           seconds=time.time() - t0, **avgs)
             if epoch % cfg.ckpt_every_epochs == 0:
-                ckpt_lib.save_train_state(out_dir / f"ldm_{epoch}.pt", state)
-                keys = list(METRIC_KEYS)
-                logger.plot(out_dir / f"ldm_loss_{epoch}.png", keys)
-                logger.plot(out_dir / f"ldm_loss_log_{epoch}.png", keys,
-                            logscale=True)
-        ckpt_lib.save_train_state(out_dir / "ldm_final.pt", state)
+                if main:
+                    ckpt_lib.save_train_state(out_dir / f"ldm_{epoch}.pt",
+                                              state)
+                    keys = list(METRIC_KEYS)
+                    logger.plot(out_dir / f"ldm_loss_{epoch}.png", keys)
+                    logger.plot(out_dir / f"ldm_loss_log_{epoch}.png", keys,
+                                logscale=True)
+                barrier(self.mesh)
+        if main:
+            ckpt_lib.save_train_state(out_dir / "ldm_final.pt", state)
+        barrier(self.mesh)
         return state

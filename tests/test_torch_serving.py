@@ -478,7 +478,7 @@ def test_cli_refuses_bad_combinations(files):
                  "--overlap", "1.0")
     args = cli.build_parser().parse_args(["serve", "--checkpoint", "c"])
     assert args.device == "cuda" and args.steps == 50
-    assert not hasattr(args, "mesh_dp")
+    assert args.mesh_dp == 1
 
 
 def test_cli_distill_advisories(tmp_path, capsys):
