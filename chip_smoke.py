@@ -21,11 +21,13 @@ Phases, in order; any failure exits non-zero:
   4. the image-level path: SDEdit transfer served by the InferenceEngine
      at full width (random weights from seed 0, bf16), on the fused route
      (every bucket of the ladder) and, through a second engine, the scan
-     route, with the kernels' launch counts read around it;
+     route, with the kernels' launch counts read around it; the same
+     seeded request twice on each route, and generation twice, bit-equal
+     in image and audio (cuDNN's deterministic algorithms);
   5. the WAV path, as a user runs it: a port checkpoint of the same
      weights, ``cli transfer`` (a 9 s 44.1 kHz stereo WAV -> PNG + WAV,
-     fused sampler, 100 steps, overlap 0.5, content phases), ``cli
-     generate``, and the HTTP server on an ephemeral localhost port
+     fused sampler, 100 steps, overlap 0.5, content phases; run twice,
+     bit-equal WAVs), ``cli generate``, and the HTTP server on an ephemeral localhost port
      answering /v1/transfer (WAV content) and /v1/generate, with the
      launch counts of all three kernels read around it;
   6. the training path: ``cli generate-pairings`` and ``cli train
@@ -97,13 +99,31 @@ Phases, in order; any failure exits non-zero:
      single-replica scan engine (f32, cuDNN deterministic; images, and
      audio at the replicas' own batch), with kernel B and C launches and
      the latency of each bucket;
+  6f. the model axis (``parallel/``, tensor and sequence parallelism):
+     (i) ranks of this script on the one card over gloo at (1, 2) and
+     (2, 2): f32 tensor-parallel LDM, AE and distill steps on 6e (i)'s 7
+     real rows (a pad row at two data indices) against 6e's one-process
+     steps and, for the LDM and AE, against one process with the ranks'
+     ReLU gates and max-pool choices pinned (every moved route within
+     rounding of a tie), a sequence-parallel LDM step on 64 x 256 against
+     one process, and at (1, 2) the 128 x 1024 forward on width blocks
+     (losses, gradients gathered whole, BatchNorm statistics; kernels D
+     and E launched in every rank's tensor- and sequence-parallel
+     steps); (ii) 20 bf16 LDM steps at the defaults, B=64, under (1, 2)
+     tensor and (1, 2) sequence parallelism beside one process (host
+     clock, kernel time, idle share, bytes per step by axis, peak memory
+     per rank; the model peers' replicated tensors hash equal after
+     them), and the 128 x 1024 step's peak memory per rank beside one
+     process;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
      shared memory per block and launch plan; kernels B and C back to
      back, and also their device time per launch (CUDA events over
      launches queued behind a sleep kernel) and host time per call
-     (1,000 calls, no sync); a profile of one training step; the AE step at B=128 f32 with LPIPS and with VGGish
+     (1,000 calls, no sync); the engines' requests at B = 1 and 8 on
+     cuDNN's deterministic algorithms and on its default choice, in
+     turns; a profile of one training step; the AE step at B=128 f32 with LPIPS and with VGGish
      compression (host clock, device time, idle share, peak memory); and
      kernel D in f32 at layer 1, B=128, held against its plain version
      (m, statistics, target gradient) and timed beside its bytes bound;
@@ -215,6 +235,20 @@ H100_BYTES = 3.35e12       # HBM3
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+class Laps:
+    """Wall seconds of each phase of ``main``, in its order."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._name, self._t = None, time.perf_counter()
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self._name is not None:
+            self.seconds[self._name] = round(now - self._t, 2)
+        self._name, self._t = name, now
 
 
 def check(cond: bool, msg: str) -> None:
@@ -567,7 +601,7 @@ def dp_steps(spec: dict, res: dict) -> None:
     torch.backends.cudnn.deterministic = True
     cfg = dp_f32_config()
     mesh = make_mesh()
-    w = batch_validity_weights(spec["n_real"], mesh.size, mesh)
+    w = batch_validity_weights(spec["n_real"], mesh.data_size, mesh)
 
     def rows(*keys):
         return shard_batch(tuple(torch.as_tensor(spec[k]) for k in keys),
@@ -695,8 +729,664 @@ def dp_world_size_1(spec: dict, res: dict) -> None:
                   "backend": torch.distributed.get_backend()}
 
 
+# ---- phase 6f's ranks: the model axis (tensor, sequence parallelism) ----
+# A split layer computes its block of channels with other cuDNN calls
+# than one process, so its f32 rounding differs, and where a ReLU's input
+# lies within that rounding of 0, or two values of a max-pool window lie
+# within it of each other, the route flips: a step in every gradient
+# behind it (the AE with neither term at (1, 2): 2.6e-3 of max against
+# one process, identical in every run of this script).  So each
+# tensor-parallel step's model index 0 records its routes (``Routing``),
+# one process runs the same step again with them pinned, and the ranks'
+# gradients are held to that run at 6e's bars; every route that differs
+# from one process's own must lie within TOL_FLIP_OF_MAX of its input's
+# largest |value| of a tie (a flip further out would be a fault, not
+# rounding).  Data and sequence parallelism run their convs at one
+# process's channel counts, and are held without pinning.
+TOL_FLIP_OF_MAX = 1e-4
+# The 128 x 1024 forward (the JAX package's tests/test_parallel.py): rtol
+# 1e-4, atol 1e-5 on the reconstruction and 2e-5 on the noise prediction.
+TOL_WIDE_RTOL, TOL_WIDE_ATOL_REC, TOL_WIDE_ATOL_EPS = 1e-4, 1e-5, 2e-5
+TP_CASES = ("tp_ldm", "tp_ae", "tp_ae_plain")   # the steps run pinned
+
+
+class Routing:
+    """``torch.relu`` and ``F.max_pool2d`` while the block runs (every ReLU
+    and max-pool of the models and of LPIPS calls them), either recording
+    each call's route (kind, input shape, array: a ReLU's gate, input >
+    0, as packed bits; a max-pool's choice in each window, its flat
+    index in the plane), or, given ``pinned`` routes recorded so, taking
+    those instead (the gradient then follows them too).  Pinned, it
+    counts the routes that differ from this run's own and how far the
+    furthest lies from a tie, relative to its input's largest |value|:
+    a flipped gate's |input|, a moved max-pool's gap between the two
+    values."""
+
+    def __init__(self, pinned=None):
+        self.routes, self.pinned = [], pinned
+        self.calls, self.flips, self.flip_of_max = 0, 0, 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self._relu, torch.relu = torch.relu, self._gate
+        self._pool, F.max_pool2d = F.max_pool2d, self._max_pool
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+        torch.relu, F.max_pool2d = self._relu, self._pool
+
+    def _next(self, kind, x):
+        check(self.calls < len(self.pinned), f"6f: more {kind} calls than "
+              "the ranks recorded")
+        got, shape, route = self.pinned[self.calls]
+        self.calls += 1
+        check((got, shape) == (kind, tuple(x.shape)), f"6f: call "
+              f"{self.calls} is a {kind} of {tuple(x.shape)}, the ranks' a "
+              f"{got} of {shape}")
+        return route
+
+    def _moved(self, n: int, gap) -> None:
+        if n:
+            self.flips += n
+            self.flip_of_max = max(self.flip_of_max, gap().item())
+
+    def _gate(self, x):
+        import numpy as np
+        import torch
+        own = x > 0
+        if self.pinned is None:
+            self.routes.append(("relu", tuple(x.shape),
+                                np.packbits(own.cpu().numpy().ravel())))
+            return self._relu(x)
+        bits = self._next("relu", x)
+        gate = torch.from_numpy(np.unpackbits(
+            bits, count=own.numel()).astype(bool)).reshape(
+                own.shape).to(x.device)
+        flipped = own != gate
+        self._moved(int(flipped.sum()),
+                    lambda: x[flipped].abs().max() / x.abs().max())
+        return x * gate.to(x.dtype)
+
+    def _max_pool(self, x, *args, **kwargs):
+        import torch
+        y, own = self._pool(x, *args, return_indices=True, **kwargs)
+        if self.pinned is None:
+            self.routes.append(("max_pool", tuple(x.shape),
+                                own.to(torch.int32).cpu().numpy()))
+            return y
+        idx = torch.from_numpy(self._next("max_pool", x)).to(
+            x.device, torch.int64)
+        pinned = x.flatten(2).gather(2, idx.flatten(2)).view_as(y)
+        moved = own != idx
+        self._moved(int(moved.sum()),
+                    lambda: (y - pinned).abs().max() / x.abs().max())
+        return pinned
+
+
+def merge_routes(per_index: list, local_rows: int, rows: int) -> list:
+    """One process's routes from each data index's (its ranks' inputs are
+    [k x local_rows, ...] for k blocks of its rows, as a batch of content
+    and style concatenated): each call's blocks joined row-wise in data
+    index order, the pad rows dropped."""
+    import numpy as np
+    out = []
+    for calls in zip(*per_index):
+        kind, shape, _ = calls[0]
+        check(shape[0] % local_rows == 0, f"6f: a {kind} input of shape "
+              f"{shape} is not in blocks of {local_rows} rows")
+        k = shape[0] // local_rows
+        blocks = []
+        for _, _, route in calls:
+            full = (np.unpackbits(route, count=int(np.prod(shape))).reshape(
+                shape) if kind == "relu" else route)
+            blocks.append(full.reshape((k, local_rows) + full.shape[1:]))
+        joined = np.concatenate(blocks, 1)[:, :rows]
+        joined = joined.reshape((k * rows,) + joined.shape[2:])
+        out.append((kind, (k * rows,) + shape[1:],
+                    np.packbits(joined.ravel()) if kind == "relu"
+                    else joined))
+    return out
+
+
+def mp_config(shape, sequence_parallel=False, f32=True):
+    from music_style_transfer_ldm_tpu_torch.config import default_config
+    cfg = dp_f32_config() if f32 else default_config()
+    cfg.mesh = dataclasses.replace(cfg.mesh, mesh_shape=tuple(shape),
+                                   sequence_parallel=sequence_parallel)
+    return cfg
+
+
+def mp_steps(spec: dict, res: dict) -> None:
+    """6f (i), one rank of an (n, m) mesh on the one card: f32
+    tensor-parallel LDM, AE and distill steps on this data index's rows of
+    phase 6e's global batch of 7 (padded to 8 at two data indices; model
+    index 0 records the LDM's and the AE's routes, ``Routing``), a
+    sequence-parallel LDM step on 64 x 256, and at (1, 2) the 128 x 1024
+    forward on width blocks; draws injected, gradients and statistics
+    gathered whole, launches of kernels D and E counted per part.  At
+    (1, 2) the ranks then run 6f (ii)'s cost (``mp_cost``)."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
+    from music_style_transfer_ldm_tpu_torch.parallel import make_mesh
+    from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+        model_axis,
+    )
+    from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+        gather_tensors, gathered_state_dict, local_blocks, rank_batch,
+        shard_batch, shard_params, split_dims,
+    )
+    from music_style_transfer_ldm_tpu_torch.training import (
+        AETrainer, LDMTrainer, ProgressiveDistiller,
+    )
+    torch.backends.cudnn.deterministic = True
+    shape = tuple(spec["shape"])
+    mesh = make_mesh(shape)
+    counted = dp_counted()
+    res["routes"] = {}
+
+    def whole_grads(module):
+        grads = {k: p.grad for k, p in module.named_parameters()
+                 if p.grad is not None}
+        return {k: v.cpu() for k, v in gather_tensors(
+            grads, split_dims(module), mesh).items()}
+
+    def whole_stats(module):
+        return {k: v.cpu() for k, v in gathered_state_dict(
+            module, mesh).items() if "running" in k}
+
+    def launches():
+        out = {fn.__name__: fn.launches for fn in counted}
+        for fn in counted:
+            fn.launches = 0
+        return out
+
+    def gated(case, step):
+        """``step()``, its routes recorded on model index 0."""
+        if mesh.model_index:
+            return step()
+        with Routing() as g:
+            out = step()
+        res["routes"][case] = g.routes
+        return out
+
+    launches()
+    keys = ("content_clean", "style_clean", "t", "noise", "segment",
+            "d_noise")
+    (c, s, t, noise, seg, dn), w = rank_batch(
+        tuple(torch.as_tensor(spec[k][:7]) for k in keys), mesh)
+    kw = {} if w is None else {"weights": w}
+    tr = LDMTrainer(mp_config(shape), mesh=mesh)
+    st = tr.init_state(0)
+    st.model.load_state_dict(local_blocks(spec["ldm"], split_dims(st.model),
+                                          mesh))
+    st, m = gated("tp_ldm", lambda: tr._step(st, c, s, t=t.long(),
+                                             noise=noise, **kw))
+    res["tp_ldm"] = {"metrics": {k: v.item() for k, v in m.items()},
+                     "grads": whole_grads(st.model),
+                     "stats": whole_stats(st.model.decoder)}
+    for case, ae_cfg, perceptual in dp_ae_cases(mp_config(shape)):
+        if f"tp_{case}" not in TP_CASES:
+            continue
+        ae = AETrainer(ae_cfg, perceptual=perceptual, mesh=mesh)
+        st = ae.init_state(0)
+        st.model.load_state_dict(local_blocks(spec["ae"],
+                                              split_dims(st.model), mesh))
+        st, loss = gated(f"tp_{case}", lambda: ae._step(st, c, **kw))
+        res[f"tp_{case}"] = {"loss": loss.item(),
+                             "grads": whole_grads(st.model),
+                             "stats": whole_stats(st.model)}
+    dist = ProgressiveDistiller(mp_config(shape), mesh=mesh, t_max=100)
+    student = build_ldm(mp_config(shape), dtype=torch.float32,
+                        device=mesh.device, seed=0)
+    student.load_state_dict(spec["ldm"])
+    shard_params(student, mesh)
+    student.requires_grad_(False)
+    student.unet.requires_grad_(True)
+    stage = dist.start_stage(student, 0, 4, 2, 1e-4)
+    dist.draws = lambda *a: (seg.long(), dn)
+    loss = dist.step(student, stage, c, s, 0, 0, **kw)
+    res["tp_distill"] = {"loss": loss.item(),
+                         "grads": whole_grads(student.unet)}
+    del tr, ae, dist, student, stage, st
+    res["launches_tp"] = launches()
+
+    (c, s), w = rank_batch((torch.as_tensor(spec["sp_content"]),
+                            torch.as_tensor(spec["sp_style"])), mesh,
+                           sequence_parallel=True)
+    (t, noise), _ = rank_batch((torch.as_tensor(spec["sp_t"]),
+                                torch.as_tensor(spec["sp_noise"])), mesh)
+    kw = {} if w is None else {"weights": w}
+    tr = LDMTrainer(mp_config(shape, sequence_parallel=True), mesh=mesh)
+    st = tr.init_state(0)
+    st.model.load_state_dict(local_blocks(spec["ldm"], split_dims(st.model),
+                                          mesh))
+    res["sp_block"] = tuple(c.shape)
+    st, m = tr._step(st, c, s, t=t.long(), noise=noise, **kw)
+    res["sp_ldm"] = {"metrics": {k: v.item() for k, v in m.items()},
+                     "grads": whole_grads(st.model),
+                     "stats": whole_stats(st.model.decoder)}
+    del tr, st
+    res["launches_sp"] = launches()
+    res["launches"] = {k: res["launches_tp"][k] + res["launches_sp"][k]
+                       for k in res["launches_tp"]}
+    if shape != (1, 2):
+        return
+    ldm = build_ldm(mp_config(shape), dtype=torch.float32,
+                    device=mesh.device, seed=0)
+    x, sty = shard_batch((torch.as_tensor(spec["wide"]),
+                          torch.as_tensor(spec["wide_style"])), mesh,
+                         sequence_parallel=True)
+    with torch.no_grad():
+        out = ldm(x, sty, torch.zeros(2, dtype=torch.long,
+                                      device=mesh.device),
+                  noise=torch.as_tensor(spec["wide_noise"],
+                                        device=mesh.device),
+                  ax=model_axis(mesh, sequence=True))
+    res["wide_forward"] = {k: out[k].cpu()
+                           for k in ("noise_pred", "reconstructed")}
+    del ldm, out
+    torch.backends.cudnn.deterministic = False
+    res["cost"] = mp_cost(mesh, spec)
+
+
+def replicated_digest(module) -> dict:
+    """{name: sha256} of every replicated (unsplit) parameter and
+    floating buffer of ``module``: model peers that hold the same bits
+    give the same digests."""
+    import hashlib
+    from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+        split_dims,
+    )
+    split = split_dims(module)
+    out = {}
+    for k, v in list(module.named_parameters()) + list(
+            module.named_buffers()):
+        if k not in split and v.is_floating_point():
+            out[k] = hashlib.sha256(
+                v.detach().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def ldm_cost(tr, c, s, profile_dir: Path, base: int = 0) -> dict:
+    """20 timed LDM steps of trainer ``tr`` on (c, s) after a warm-up
+    step: host clock, kernel time (3 profiled steps), idle share, the
+    collectives' calls and bytes per step, peak memory (above ``base``
+    bytes, what the process held before the trainer), launches."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
+        COUNTS,
+    )
+    counted = dp_counted()
+    st = tr.init_state(0)
+    st, _ = tr._step(st, c, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    before = dict(COUNTS)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        st, m = tr._step(st, c, s)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    out = {"ms_per_step": ms, "metrics": {k: v.item() for k, v in m.items()},
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+           "collectives_per_step": {k: (COUNTS[k] - before[k]) / 20
+                                    for k in COUNTS},
+           "ddp_gradient_bytes": sum(p.numel() * p.element_size()
+                                     for p in st.model.parameters()
+                                     if p.requires_grad),
+           "launches": {fn.__name__: fn.launches for fn in counted}}
+    box = [st]
+
+    def three():
+        for _ in range(3):
+            box[0], _ = tr._step(box[0], c, s)
+    kernels = profiled_kernels(three, profile_dir)
+    out["device_ms_per_step"] = sum(us for us, *_ in kernels) / 1e3 / 3
+    out["idle_share"] = (1.0 - out["device_ms_per_step"] / ms
+                         if out["device_ms_per_step"] > 0 else None)
+    out["top_kernels_ms"] = [(k[:60], us / 1e3 / 3)
+                             for us, k, _ in kernels[:5]]
+    out["replicated_digest"] = replicated_digest(box[0].model)
+    return out
+
+
+def wide_cost(tr, c, s, base: int = 0) -> dict:
+    """One timed LDM step on 128 x 1024 clips after a warm-up step: host
+    clock, peak memory (above ``base`` bytes)."""
+    import torch
+    st = tr.init_state(0)
+    st, _ = tr._step(st, c, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, m = tr._step(st, c, s)
+    torch.cuda.synchronize()
+    return {"ms": 1e3 * (time.perf_counter() - t0),
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "metrics": {k: v.item() for k, v in m.items()},
+            "block": tuple(c.shape)}
+
+
+def cost_inputs(dev) -> tuple:
+    """6f (ii)'s rows: B=64 content and style at 128 x 128, and B=8 clips
+    of 128 x 1024, from a generator seeded 5 on the card."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    return tuple(torch.rand(*shape, device=dev, generator=g) for shape in (
+        (64, 128, 128, 1), (64, 128, 128, 1), (8, 128, 1024, 1)))
+
+
+def mp_cost(mesh, spec: dict) -> dict:
+    """6f (ii), one rank of a (1, 2) mesh on the one card: 20 bf16 LDM
+    steps at the defaults on B=64 (the data index's rows, alike on both
+    ranks), tensor parallel, then sequence parallel (``ldm_cost``); then
+    a sequence-parallel bf16 step on B=8 clips of 128 x 1024 and its peak
+    memory."""
+    from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+        rank_batch,
+    )
+    from music_style_transfer_ldm_tpu_torch.training import LDMTrainer
+    c, s, wide = cost_inputs(mesh.device)
+    out = {}
+    for mode in ("tp", "sp"):
+        sp = mode == "sp"
+        (cc, ss), _ = rank_batch((c, s), mesh, sequence_parallel=sp)
+        out[mode] = ldm_cost(
+            LDMTrainer(mp_config((1, 2), sp, f32=False), mesh=mesh), cc, ss,
+            Path(spec["profile"]) / f"{mode}_rank{mesh.index}")
+    (cw, sw), _ = rank_batch((wide, wide), mesh, sequence_parallel=True)
+    out["wide_step"] = wide_cost(
+        LDMTrainer(mp_config((1, 2), True, f32=False), mesh=mesh), cw, sw)
+    return out
+
+
+def mp_one(spec: dict, routes: dict) -> dict:
+    """6f's one process, run in this (the main) process after the ranks:
+    the f32 steps that (i) holds the ranks to beyond 6e (i)'s (the LDM
+    and AE steps again with each tensor-parallel mesh's ReLU gates and
+    max-pool choices pinned, ``Routing``; the LDM on 64 x 256; the
+    128 x 1024 forward; cuDNN deterministic, draws injected), then (ii)'s
+    bf16 cost on the same rows as the ranks, its peak memory counted
+    above what the process held before (the earlier phases' tensors)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from music_style_transfer_ldm_tpu_torch.config import default_config
+    from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
+    from music_style_transfer_ldm_tpu_torch.training import (
+        AETrainer, LDMTrainer,
+    )
+    dev = torch.device("cuda", 0)
+    cfg32 = dp_f32_config()
+    ae_cases = {f"tp_{case}": (ae_cfg, perceptual) for case, ae_cfg,
+                perceptual in dp_ae_cases(cfg32)}
+    torch.backends.cudnn.deterministic = True
+    res: dict = {"pinned": {}}
+
+    def on_card(key, rows=None):
+        return torch.as_tensor(spec[key][:rows], device=dev)
+    c, s = on_card("content_clean", 7), on_card("style_clean", 7)
+
+    def tp_step(key) -> dict:
+        if key == "tp_ldm":
+            tr = LDMTrainer(cfg32)
+            st = tr.init_state(0)
+            st.model.load_state_dict(spec["ldm"])
+            st, m = tr._step(st, c, s, t=on_card("t", 7).long(),
+                             noise=on_card("noise", 7))
+            return {"metrics": {k: v.item() for k, v in m.items()},
+                    "grads": dp_grads(st.model),
+                    "stats": dp_stats(st.model.decoder)}
+        ae_cfg, perceptual = ae_cases[key]
+        ae = AETrainer(ae_cfg, perceptual=perceptual)
+        st = ae.init_state(0)
+        st.model.load_state_dict(spec["ae"])
+        st, loss = ae._step(st, c)
+        return {"loss": loss.item(), "grads": dp_grads(st.model),
+                "stats": dp_stats(st.model)}
+
+    for tag, cases in routes.items():
+        res["pinned"][tag] = {}
+        for key, pinned in cases.items():
+            with Routing(pinned=pinned) as g:
+                out = tp_step(key)
+            check(g.calls == len(pinned), f"6f {tag} {key}: {g.calls} "
+                  f"calls pinned of the ranks' {len(pinned)}")
+            res["pinned"][tag][key] = dict(
+                out, flips=g.flips, flip_of_max=g.flip_of_max,
+                routes=sum(int(np.prod(r.shape)) * (8 if kind == "relu"
+                                                    else 1)
+                           for kind, _, r in pinned))
+    tr = LDMTrainer(cfg32)
+    st = tr.init_state(0)
+    st.model.load_state_dict(spec["ldm"])
+    st, m = tr._step(st, on_card("sp_content"), on_card("sp_style"),
+                     t=on_card("sp_t").long(), noise=on_card("sp_noise"))
+    res["sp_ldm"] = {"metrics": {k: v.item() for k, v in m.items()},
+                     "grads": dp_grads(st.model),
+                     "stats": dp_stats(st.model.decoder)}
+    ldm = build_ldm(cfg32, dtype=torch.float32, device=dev, seed=0)
+    with torch.no_grad():
+        out = ldm(on_card("wide"), on_card("wide_style"),
+                  torch.zeros(2, dtype=torch.long, device=dev),
+                  noise=on_card("wide_noise"))
+    res["wide_forward"] = {k: out[k].cpu()
+                           for k in ("noise_pred", "reconstructed")}
+    torch.backends.cudnn.deterministic = False
+    del tr, st, ldm, out, c, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    c64, s64, wide = cost_inputs(dev)
+    base = torch.cuda.memory_allocated()
+    res["cost"] = ldm_cost(LDMTrainer(default_config()), c64, s64,
+                           Path(spec["profile"]) / "one", base)
+    res["wide_step"] = wide_cost(LDMTrainer(default_config()), wide, wide,
+                                 base)
+    return res
+
+
+def model_parallel_phase(work: Path, spec: dict, one_dp: dict,
+                         card: str) -> tuple:
+    """Phase 6f, the model axis: parity of tensor- and sequence-parallel
+    ranks against one process (6e (i)'s weights and rows in ``spec``, its
+    one-process steps in ``one_dp``; ``mp_one`` after the ranks, with
+    their routes pinned for the tensor-parallel steps), then their cost
+    beside it.  -> (results, launches summed over the parity ranks)."""
+    import numpy as np
+    import torch
+    # (i) parity, f32 (TF32 off, cuDNN deterministic): ranks of this
+    # script on the one card over gloo at (1, 2) and (2, 2):
+    # tensor-parallel LDM, AE and distill steps on 6e (i)'s 7 real rows
+    # (padded to 8 at two data indices), a sequence-parallel LDM step on
+    # 64 x 256, at (1, 2) the 128 x 1024 forward on width blocks of 512
+    # and then (ii)'s cost, each against one process (6e (i)'s steps and
+    # ``mp_one``)
+    mdir = work / "model_parallel"
+    shutil.rmtree(mdir, ignore_errors=True)
+    profile = work / "profile" / "model_parallel"
+    mp_rng = np.random.RandomState(23)
+    spec.update(
+        sp_content=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
+        sp_style=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
+        sp_t=mp_rng.randint(0, 200, 7),
+        sp_noise=mp_rng.randn(7, 8, 32, 32).astype(np.float32),
+        wide=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
+        wide_style=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
+        wide_noise=mp_rng.randn(2, 16, 128, 32).astype(np.float32),
+        profile=str(profile))
+    meshes, seconds = {}, {}
+    for n_d, n_m in ((1, 2), (2, 2)):
+        tag = f"{n_d}x{n_m}"
+        t0 = time.perf_counter()
+        meshes[tag] = dp_spawn("mp_steps", n_d * n_m,
+                               dict(spec, shape=(n_d, n_m)), mdir / tag)
+        seconds[tag] = time.perf_counter() - t0
+    # one process, with each mesh's routes: (1, 2)'s rank 0's; (2, 2)'s
+    # ranks 0 and 2 (data indices 0 and 1, 4 rows each) joined
+    r22 = meshes["2x2"]
+    routes = {"1x2": meshes["1x2"][0]["routes"],
+              "2x2": {key: merge_routes([r22[0]["routes"][key],
+                                         r22[2]["routes"][key]], 4, 7)
+                      for key in TP_CASES}}
+    t0 = time.perf_counter()
+    one = mp_one(spec, routes)
+    seconds["one_process"] = time.perf_counter() - t0
+    one.update({f"tp_{k}": one_dp[k] for k in ("ldm", "ae", "ae_plain",
+                                                "distill")})
+    del routes
+    mp_i: dict = {}
+    for tag, ranks in meshes.items():
+        mp_i[tag] = {"seconds": seconds[tag], "ranks": []}
+        for r, res in enumerate(ranks):
+            check(res["backend"] == "gloo", "6f (i) is not on gloo")
+            row = {"launches_tp": res["launches_tp"],
+                   "launches_sp": res["launches_sp"],
+                   "sp_block": res["sp_block"]}
+            for key in TP_CASES + ("tp_distill", "sp_ldm"):
+                got, want = res[key], one[key]
+                row[f"{key}_loss_rel"] = (
+                    max(dp_rel(got["metrics"][k], v)
+                        for k, v in want["metrics"].items())
+                    if "metrics" in want else dp_rel(got["loss"],
+                                                     want["loss"]))
+                row[f"{key}_grad_of_max"] = dp_grad_of_max_by_part(
+                    got["grads"], want["grads"])
+                if "stats" in want:
+                    row[f"{key}_stats_rel"] = dp_stats_err(got["stats"],
+                                                           want["stats"])
+                if key in TP_CASES:
+                    pinned = one["pinned"][tag][key]
+                    row[f"{key}_pinned_grad_of_max"] = dp_grad_of_max_by_part(
+                        got["grads"], pinned["grads"])
+                    row[f"{key}_flips"] = {k: pinned[k] for k in (
+                        "flips", "routes", "flip_of_max")}
+            if "wide_forward" in res:
+                for k, atol in (("reconstructed", TOL_WIDE_ATOL_REC),
+                                ("noise_pred", TOL_WIDE_ATOL_EPS)):
+                    got, want = res["wide_forward"][k], one["wide_forward"][k]
+                    row[f"wide_{k}_excess"] = ((got - want).abs() - atol
+                                               - TOL_WIDE_RTOL * want.abs()
+                                               ).max().item()
+                    row[f"wide_{k}_max_abs"] = (got - want).abs().max().item()
+            mp_i[tag]["ranks"].append(row)
+            print(f"6f (i) {tag} rank {r} of {len(ranks)} on the one card "
+                  f"(gloo, f32) against one process (TP gradients against "
+                  f"it with this mesh's ReLU gates and max-pool choices "
+                  f"pinned; unpinned beside them): "
+                  f"{ {k: v for k, v in row.items() if 'launches' not in k} }"
+                  f"; launches TP {row['launches_tp']}, SP "
+                  f"{row['launches_sp']}")
+            for key in TP_CASES + ("tp_distill", "sp_ldm"):
+                check(row[f"{key}_loss_rel"] <= TOL_DP_LOSS,
+                      f"6f (i) {tag} rank {r}: {key} loss off by "
+                      f"{row[f'{key}_loss_rel']:.3g} (tol {TOL_DP_LOSS})")
+                held = row.get(f"{key}_pinned_grad_of_max",
+                               row[f"{key}_grad_of_max"])
+                for part, err in held.items():
+                    tol = (TOL_AE_KL_ENCODER if key == "tp_ae"
+                           and part == "encoder" else TOL_DP_GRAD)
+                    check(err <= tol, f"6f (i) {tag} rank {r}: {key} {part} "
+                          f"gradients off by {err:.3g} of max (tol {tol})")
+                if key in TP_CASES:
+                    flips = row[f"{key}_flips"]
+                    check(flips["flip_of_max"] <= TOL_FLIP_OF_MAX,
+                          f"6f (i) {tag}: {key} took a route "
+                          f"{flips['flip_of_max']:.3g} of its input's max "
+                          f"from a tie (tol {TOL_FLIP_OF_MAX})")
+            for key in TP_CASES + ("sp_ldm",):
+                check(row[f"{key}_stats_rel"] <= TOL_DP_STATS,
+                      f"6f (i) {tag} rank {r}: {key} BatchNorm statistics "
+                      f"off by {row[f'{key}_stats_rel']:.3g} "
+                      f"(tol {TOL_DP_STATS})")
+            for k in ("reconstructed", "noise_pred"):
+                if f"wide_{k}_excess" in row:
+                    check(row[f"wide_{k}_excess"] <= 0.0,
+                          f"6f (i) {tag} rank {r}: the 128 x 1024 forward's "
+                          f"{k} off by {row[f'wide_{k}_max_abs']:.3g}")
+            for part in ("launches_tp", "launches_sp"):
+                check(row[part]["fused_trunk"] > 0
+                      and row[part]["normalized_mse_forward"] > 0,
+                      f"6f (i) {tag} rank {r}: kernels D and E did not run "
+                      f"in its {part[9:].upper()} steps")
+
+    # (ii) cost: 20 bf16 LDM steps at the defaults, B=64 per data index,
+    # under (1, 2) tensor and (1, 2) sequence parallelism (run by the
+    # (1, 2) ranks above), beside one process on the same rows; then the
+    # 128 x 1024 step's peak memory
+    one_wide = one["wide_step"]
+    mp_ii = {"seconds": seconds,
+             "one_process": dict(one["cost"], wide_step=one_wide),
+             "ranks": [res["cost"] for res in meshes["1x2"]]}
+    x = one["cost"]
+    one_ms, one_dev, one_peak = (x["ms_per_step"], x["device_ms_per_step"],
+                                 x["peak_mib"])
+    print(f"6f seconds (wall): {seconds}")
+    print(f"time {card} 6f (ii) one process, LDM step B=64 bf16: "
+          f"{one_ms:.1f} ms/step (host clock over 20), device "
+          f"{one_dev:.2f} ms/step, peak memory {one_peak:.0f} MiB; "
+          f"128 x 1024 step B=8: {one_wide['ms']:.1f} ms, peak memory "
+          f"{one_wide['peak_mib']:.0f} MiB")
+    for r, row in enumerate(mp_ii["ranks"]):
+        for mode in ("tp", "sp"):
+            x = row[mode]
+            idle = x["idle_share"]
+            coll = x["collectives_per_step"]
+            print(f"time {card} 6f (ii) {mode.upper()} (1, 2) rank {r} of 2 "
+                  f"on the one card (gloo, bf16, B=64): "
+                  f"{x['ms_per_step']:.1f} ms/step (host clock over 20), "
+                  f"device {x['device_ms_per_step']:.2f} ms/step "
+                  f"(torch.profiler over 3), idle share "
+                  f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+                  f"model axis {coll['model_bytes'] / 1e6:.2f} MB in "
+                  f"{coll['model_calls']:.0f} calls per step, statistics "
+                  f"and metrics all-reduced "
+                  f"{coll['all_reduce_bytes'] / 1e6:.3f} MB in "
+                  f"{coll['all_reduce_calls']:.0f} calls, "
+                  f"DistributedDataParallel's gradients "
+                  f"{x['ddp_gradient_bytes'] / 1e6:.2f} MB over a data "
+                  f"group of 1, peak memory {x['peak_mib']:.0f} MiB; "
+                  f"metrics { {k: round(v, 5) for k, v in x['metrics'].items()} }"
+                  f"; launches {x['launches']}; top device entries "
+                  f"{[(k, round(v, 3)) for k, v in x['top_kernels_ms']]}")
+            check(all(np.isfinite(v) for v in x["metrics"].values()),
+                  f"6f (ii) {mode} rank {r}: a non-finite loss")
+            check(x["launches"]["fused_trunk"] > 0,
+                  f"6f (ii) {mode} rank {r}: kernel E never ran")
+        w = row["wide_step"]
+        print(f"time {card} 6f (ii) SP (1, 2) rank {r}: 128 x 1024 step B=8 "
+              f"bf16 on width blocks {w['block']}: {w['ms']:.1f} ms, peak "
+              f"memory {w['peak_mib']:.0f} MiB per rank (one process "
+              f"{one_wide['peak_mib']:.0f} MiB)")
+        check(all(np.isfinite(v) for v in w["metrics"].values()),
+              f"6f (ii) rank {r}: the 128 x 1024 step's loss is not finite")
+    # the model peers' replicated parameters and BatchNorm statistics after
+    # 24 steps on cuDNN's default algorithms: the same bits
+    for mode in ("tp", "sp"):
+        a, b = (row[mode]["replicated_digest"] for row in mp_ii["ranks"])
+        differ = sorted(k for k in a if a[k] != b[k])
+        print(f"6f (ii) {mode.upper()}: {len(a)} replicated tensors hashed "
+              f"on both model peers after 24 steps, {len(differ)} differ "
+              f"{differ[:5]}")
+        check(set(a) == set(b) and not differ,
+              f"6f (ii) {mode}: the model peers' replicated tensors differ "
+              f"after 24 steps: {differ[:5]}")
+    mp_launches = {k: sum(r["launches_tp"][k] + r["launches_sp"][k]
+                          for t in mp_i.values() for r in t["ranks"])
+                   for k in mp_i["1x2"]["ranks"][0]["launches_tp"]}
+    del meshes, one
+    shutil.rmtree(mdir, ignore_errors=True)
+    return {"i": mp_i, "ii": mp_ii}, mp_launches
+
+
 def dp_worker(args) -> int:
-    """A rank of phase 6e: started by the phase, never by hand."""
+    """A rank of phase 6e or 6f: started by the phase, never by hand."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -714,15 +1404,16 @@ def dp_worker(args) -> int:
     counted = dp_counted()
     for fn in counted:
         fn.launches = 0
-    res = {"backend": torch.distributed.get_backend()}
-    {"steps": dp_steps, "loader": dp_loader,
-     "ws1": dp_world_size_1}[args.dp_worker](spec, res)
+    grouped = torch.distributed.is_initialized()
+    res = {"backend": torch.distributed.get_backend() if grouped else None}
+    {"steps": dp_steps, "loader": dp_loader, "ws1": dp_world_size_1,
+     "mp_steps": mp_steps}[args.dp_worker](spec, res)
     torch.cuda.synchronize()
     res.setdefault("launches", {fn.__name__: fn.launches for fn in counted})
-    rank = torch.distributed.get_rank()
+    rank = torch.distributed.get_rank() if grouped else 0
     torch.save(res, f"{args.out}.{rank}")
-    print(f"6e {args.dp_worker} rank {rank}: launches {res['launches']}",
-          flush=True)
+    print(f"6e/6f {args.dp_worker} rank {rank}: launches "
+          f"{res['launches']}", flush=True)
     parallel.shutdown()
     return 0
 
@@ -785,7 +1476,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the measurements here (JSON)")
     # phase 6e starts its ranks as this script with these
-    ap.add_argument("--dp-worker", choices=["steps", "loader", "ws1"],
+    ap.add_argument("--dp-worker", choices=["steps", "loader", "ws1",
+                                            "mp_steps"],
                     help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
@@ -796,6 +1488,8 @@ def main() -> int:
         return dp_worker(args)
 
     # ---- 1. device ----------------------------------------------------
+    laps = Laps()
+    laps.start("1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check runs on a GPU",
@@ -890,6 +1584,7 @@ def main() -> int:
     results: dict = {"card": smi, "kind": kind}
 
     # ---- 2. build (one nvcc per source, all at once) --------------------
+    laps.start("2")
     built: dict = {"A": {}, "B": {}, "C": {}, "D": {}, "E": {}, "S": {}}
 
     def nvcc_build(key, fn):
@@ -924,6 +1619,7 @@ def main() -> int:
                           "all": build_s}
 
     # ---- 3. kernels against their plain versions -----------------------
+    laps.start("3")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     ldm32 = build_ldm(dtype=torch.float32, device=dev, seed=0)
@@ -1285,6 +1981,7 @@ def main() -> int:
                          nm.normalized_mse_backward, ft.fused_trunk)
 
     # ---- 4. the image-level path --------------------------------------
+    laps.start("4")
     rng = np.random.RandomState(0)
     reqs_c = rng.rand(8, 128, 128, 1).astype(np.float32)
     reqs_s = rng.rand(8, 128, 128, 1).astype(np.float32)
@@ -1337,7 +2034,28 @@ def main() -> int:
           f"max abs err {err_g:.3g} (tol {TOL_GROUPING})")
     check(err_g <= TOL_GROUPING, "a request's image depends on its batch")
 
+    # the same seeded request twice on the default engines (bf16, audio
+    # on): bit for bit, on the fused route and on the scan route, and
+    # generation from noise (the engines' programs run on cuDNN's
+    # deterministic algorithms, utils/chips.py deterministic_convs)
+    repeat = {}
+    for route, eng in (("fused", engine), ("scan", scan_engine)):
+        a, b = (eng.transfer_batch(reqs_c[:2], reqs_s[:2], seeds=[5, 6])
+                for _ in range(2))
+        repeat[route] = {k: bool(np.array_equal(a[k], b[k]))
+                         for k in ("image", "audio")}
+    a, b = (engine.generate(reqs_s[:1], seed=5) for _ in range(2))
+    repeat["generate"] = {k: bool(np.array_equal(a[k], b[k]))
+                          for k in ("image", "audio")}
+    print(f"determinism: the same request twice, bit-equal image and audio "
+          f"on each route: {repeat}")
+    for route, same in repeat.items():
+        check(all(same.values()), f"a repeated request on the {route} route "
+              f"is not bit-equal: {same}")
+    results["repeat_bit_equal"] = repeat
+
     # ---- 5. the WAV path: CLI transfer and generate, HTTP server ------
+    laps.start("5")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     ckpt = work / "ldm_seed0.pt"
@@ -1364,6 +2082,17 @@ def main() -> int:
               "--phase-init", "content", "--output", str(work / "transfer")])
     torch.cuda.synchronize()
     cli_transfer_s = time.perf_counter() - t0
+    # the same command again: bit-equal WAVs (cuDNN's deterministic
+    # algorithms inside cli transfer)
+    cli.main(["transfer", "--checkpoint", str(ckpt), "--content",
+              str(content_wav), "--style", str(content_wav), "--sampler",
+              "fused", "--steps", "100", "--overlap", "0.5",
+              "--phase-init", "content", "--output", str(work / "transfer2")])
+    same_wav = (work / "transfer.wav").read_bytes() == (
+        work / "transfer2.wav").read_bytes()
+    print(f"cli transfer twice: WAVs bit-equal {same_wav}")
+    check(same_wav, "cli transfer run twice wrote different WAVs")
+    results["cli_transfer_repeat_bit_equal"] = same_wav
     cli.main(["generate", "--checkpoint", str(ckpt), "--style",
               str(work / "transfer.png"), "--sampler", "fused",
               "--output", str(work / "generate")])
@@ -1418,6 +2147,7 @@ def main() -> int:
     results["launches"]["wav_path"] = wav_launches
 
     # ---- 6. the training path ------------------------------------------
+    laps.start("6")
     tdir = work / "train"
     imgs = tdir / "images"
     img_rng = np.random.RandomState(1)
@@ -1526,6 +2256,7 @@ def main() -> int:
     results["max_abs_err"]["f32_step"] = err_step
 
     # ---- 6b. the reference's two-phase recipe ----------------------------
+    laps.start("6b")
     # phase 1 as a user runs it (defaults: B=128, f32, LPIPS), the handoff
     # to phase 2, a transfer from its result, load_ldm's fallback, kernel D
     # on the phase-1 path (VGGish compression), and the reference's own
@@ -1694,6 +2425,7 @@ def main() -> int:
     results["max_abs_err"]["f32_ae_step"] = err_ae
 
     # ---- 6c. the distillation and evaluation path ------------------------
+    laps.start("6c")
     # a cascade and a guided collapse through cli distill at the defaults
     # (B=128, bf16, t_max 100) from phase 6's checkpoint, the students
     # served (cli transfer, HTTP) on their own grids, the evaluation
@@ -1963,6 +2695,7 @@ def main() -> int:
     del teacher16, student16
 
     # ---- 6d. the data path at the reference's scale ---------------------
+    laps.start("6d")
     # cli build-dataset on 4 instruments x one 30-minute WAV (kernel C at
     # B = 64), the pack, the pairings, three loaders in the same order, and
     # 20 LDM steps fed by each; data from generators of their own, so the
@@ -2243,6 +2976,7 @@ def main() -> int:
     shutil.rmtree(audio_dir, ignore_errors=True)
 
     # ---- 6e. the data-parallel path ------------------------------------
+    laps.start("6e (i)")
     # (i) two ranks of this script on the one card over gloo (CUDA
     # tensors): f32 LDM, AE and distill steps on a global batch of 8 with
     # 7 real rows, each against the one-process step on the 7 rows
@@ -2366,6 +3100,7 @@ def main() -> int:
                   f"6e (i): the ranks' {case} statistics differ at {k}")
     del ranks
 
+    laps.start("6e (ii)")
     # (ii) 20 bf16 LDM steps at the defaults, global B=128 as 2 x 64, fed
     # by DevicePairLoader(mesh=) over the card-resident corpus
     t0 = time.perf_counter()
@@ -2400,6 +3135,7 @@ def main() -> int:
           "6e (ii): the ranks report different global metrics")
     del ranks
 
+    laps.start("6e (iii)")
     # (iii) torch.distributed.run at world size 1 on nccl: the CLI as a
     # user runs it (2 steps at B=128), then the data-parallel machinery
     # against the plain trainer
@@ -2445,6 +3181,7 @@ def main() -> int:
           f"trainer {[round(v, 2) for v in dp_iii['ms_per_step']['plain']]}"
           f"; launches {dp_iii['launches']}")
 
+    laps.start("6e (iv)")
     # (iv) the engine over two replicas on the one card, f32, against the
     # single-replica scan engine, cuDNN deterministic: its other
     # algorithms move an f32 image by an ulp from run to run, on one
@@ -2536,7 +3273,13 @@ def main() -> int:
                                 "iv": dp_iv}
     shutil.rmtree(pdir, ignore_errors=True)
 
+    # ---- 6f. the model axis: tensor and sequence parallelism -----------
+    laps.start("6f")
+    results["model_parallel"], results["launches"]["model_parallel_ranks"] = \
+        model_parallel_phase(work, spec, one, card)
+
     # ---- 7. times -------------------------------------------------------
+    laps.start("7")
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
                    "scan_engine_request_s": {}, "kernel_a_f32_ms": {}}
@@ -2639,6 +3382,36 @@ def main() -> int:
               f"steps, NNLS 64, GL 32): {times['engine_request_s'][B]:.3f} "
               f"s; scan-route engine {times['scan_engine_request_s'][B]:.3f}"
               " s")
+    # the determinism repair's cost: the same requests as shipped (the
+    # engines' programs on cuDNN's deterministic algorithms) and on
+    # cuDNN's default choice, by swapping torch.backends.cudnn.flags (which
+    # utils/chips.py deterministic_convs calls) for the duration; in turns
+    real_flags = torch.backends.cudnn.flags
+
+    @contextlib.contextmanager
+    def default_algorithms(**kw):
+        with real_flags(**dict(kw, deterministic=False)):
+            yield
+    det = times["determinism_request_s"] = {}
+    for B in (1, 8):
+        for route, eng in (("fused", engine), ("scan", scan_engine)):
+            row = det[f"{route}_b{B}"] = {"deterministic": [], "default": []}
+            for mode in ("deterministic", "default", "default",
+                         "deterministic"):
+                if mode == "default":
+                    torch.backends.cudnn.flags = default_algorithms
+                try:
+                    t0 = time.perf_counter()
+                    eng.transfer_batch(reqs_c[:B], reqs_s[:B],
+                                       seeds=np.arange(B))
+                    row[mode].append(time.perf_counter() - t0)
+                finally:
+                    torch.backends.cudnn.flags = real_flags
+            print(f"time {card} engine transfer_batch B={B} ({route} route "
+                  f"engine, bf16, audio on), runs deterministic, default, "
+                  f"default, deterministic: cuDNN deterministic "
+                  f"{[round(x, 4) for x in row['deterministic']]} s, "
+                  f"cuDNN default {[round(x, 4) for x in row['default']]} s")
     times.update({"kernel_c_ms": {}, "plain_c_ms": {}, "bound_c_ms": {},
                   "front_end_ms_per_chunk": {}, "bound_c_by": {}})
     for B in (1, 8):
@@ -3048,6 +3821,10 @@ def main() -> int:
         names = by_path.get(k["name"], (k["name"],))
         k["launches_by_path"] = {p: sum(n[x] for x in names)
                                  for p, n in results["launches"].items()}
+    laps.start(None)
+    results["phase_seconds"] = laps.seconds
+    print(f"phase seconds (wall, this run): {laps.seconds}, total "
+          f"{sum(laps.seconds.values()):.1f}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**results, "kernels": kernels}, f, indent=1)

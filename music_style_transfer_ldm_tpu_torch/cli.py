@@ -115,7 +115,9 @@ from music_style_transfer_ldm_tpu_torch.training.train_autoencoder import (
     AETrainer,
 )
 from music_style_transfer_ldm_tpu_torch.training.train_ldm import LDMTrainer
-from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
+from music_style_transfer_ldm_tpu_torch.utils.chips import (
+    deterministic_convs, fused_bucket_max,
+)
 from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
 
 # Images are read by utils/png.py, which takes PNG only: another image
@@ -236,8 +238,10 @@ def _check_guidance(args) -> None:
                          "conditional branch only")
 
 
+@deterministic_convs()
 def cmd_generate(args) -> int:
-    """Style-conditioned generation from noise."""
+    """Style-conditioned generation from noise (cuDNN's deterministic
+    algorithms: the same seed gives the same WAV)."""
     cfg, ldm, ap = _restore(args)
     _warn_generate_distill_mismatch(args, cfg.diffusion.num_timesteps)
     _check_guidance(args)
@@ -257,8 +261,10 @@ def cmd_generate(args) -> int:
     return 0
 
 
+@deterministic_convs()
 def cmd_transfer(args) -> int:
-    """Content + style transfer, the product path.
+    """Content + style transfer, the product path (cuDNN's deterministic
+    algorithms: the same seed gives the same WAV).
 
     Content audio of any length is cut into 3 s chunks that go through
     the sampler together (the fused samplers in groups of

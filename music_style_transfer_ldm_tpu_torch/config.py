@@ -1,7 +1,7 @@
 """Framework configuration (copy of the JAX package's dataclasses).
 
 The port keeps its own copy so it imports nothing of the JAX package.
-``MeshConfig`` is the data-parallel layout of ``parallel/``.
+``MeshConfig`` is the (data, model) layout of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class DiffusionConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
-    """Training hyperparameters (training is ported in a later slice)."""
+    """Training hyperparameters."""
 
     learning_rate: float = 5e-4
     lr_factor: float = 0.5
@@ -95,15 +95,17 @@ class DataConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """The device mesh's layout (``parallel/mesh.py``), the JAX
-    package's fields.  ``data_axis`` and ``model_axis`` are inert: the
-    port names its axes "data" and "model" and reads neither field."""
+    """The trainers' device mesh (``parallel/mesh.py``), the JAX
+    package's fields.  ``mesh_shape`` (n, m): n data indices by a model
+    axis of m over n x m ranks (one process each; -1 fills from the rank
+    count).  At m > 1 the wide layers split over the model axis (tensor
+    parallelism), or with ``sequence_parallel`` the LDM trainer's batches
+    split on their width (sequence parallelism, for clips too wide for
+    one card).  The port names its axes "data" and "model" and reads
+    neither ``data_axis`` nor ``model_axis``."""
 
     data_axis: str = "data"
     model_axis: str = "model"
-    # (-1, 1): every rank (or listed device) on the data axis.  A model
-    # axis > 1 (tensor parallelism) and sequence_parallel (width-sharded
-    # batches) are not ported yet: both raise NotImplementedError.
     mesh_shape: Tuple[int, int] = (-1, 1)
     sequence_parallel: bool = False
 

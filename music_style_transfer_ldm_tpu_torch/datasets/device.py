@@ -88,7 +88,7 @@ class DevicePairLoader(EpochBatches):
                  shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False):
         mesh = dataset.mesh
-        procs = ((mesh.index, mesh.size)
+        procs = ((mesh.data_index, mesh.data_size)
                  if mesh is not None and mesh.distributed else (0, 1))
         super().__init__(dataset, batch_size, indices, shuffle, seed,
                          drop_last, *procs)

@@ -9,7 +9,8 @@ frozen encoder of LDM training) normalises with the running statistics,
 True with the batch's and updates the running ones.  In train mode
 ``sample_weights`` ([B] validity, 0 for a pad row) keeps pad rows out of
 every BatchNorm's statistics and ``group`` takes them over every rank
-(``models/layers.py BatchNorm``).
+(``models/layers.py BatchNorm``).  ``ax`` runs them under a model axis
+(``models/layers.py``: tensor or sequence parallelism).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from music_style_transfer_ldm_tpu_torch.models.layers import (
-    BatchNorm, conv_s2, convT_k4,
+    BatchNorm, conv, conv_s2, convT_k4,
 )
 
 
@@ -39,11 +40,11 @@ class SpectrogramEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 sample_weights: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        bn = dict(mask=sample_weights, group=group)
-        x = torch.relu(self.bn1(self.conv1(x), train, **bn))
-        x = torch.relu(self.bn2(self.conv2(x), train, **bn))
-        return self.bn3(self.conv3(x), train, **bn)
+                group=None, ax=None) -> torch.Tensor:
+        bn = dict(mask=sample_weights, group=group, ax=ax)
+        x = torch.relu(self.bn1(conv(self.conv1, x, ax), train, **bn))
+        x = torch.relu(self.bn2(conv(self.conv2, x, ax), train, **bn))
+        return self.bn3(conv(self.conv3, x, ax), train, **bn)
 
 
 class SpectrogramDecoder(nn.Module):
@@ -57,8 +58,8 @@ class SpectrogramDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor, train: bool = False,
                 sample_weights: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        bn = dict(mask=sample_weights, group=group)
-        z = torch.relu(self.bn1(self.deconv1(z), train, **bn))
-        z = torch.relu(self.bn2(self.deconv2(z), train, **bn))
-        return torch.tanh(self.deconv3(z))
+                group=None, ax=None) -> torch.Tensor:
+        bn = dict(mask=sample_weights, group=group, ax=ax)
+        z = torch.relu(self.bn1(conv(self.deconv1, z, ax), train, **bn))
+        z = torch.relu(self.bn2(conv(self.deconv2, z, ax), train, **bn))
+        return torch.tanh(conv(self.deconv3, z, ax))

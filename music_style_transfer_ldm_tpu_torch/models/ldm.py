@@ -34,6 +34,7 @@ from music_style_transfer_ldm_tpu_torch.models.style_encoder import (
     StyleEncoder,
 )
 from music_style_transfer_ldm_tpu_torch.models.unet import UNet
+from music_style_transfer_ldm_tpu_torch.parallel.collectives import gather
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 
@@ -109,7 +110,7 @@ class LDM(nn.Module):
                 style_drop_mask: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
                 sample_weights: Optional[torch.Tensor] = None,
-                group=None) -> Dict[str, torch.Tensor]:
+                group=None, ax=None) -> Dict[str, torch.Tensor]:
         """NHWC content x and style [B, 128, 128, 1], t [B] -> NHWC
         {z_t, noise, noise_pred, z_0, reconstructed}.
 
@@ -119,30 +120,43 @@ class LDM(nn.Module):
         guidance training).  ``noise`` [B, 16, 16, latent_dim] (NHWC) is
         the q-sample draw as given; otherwise it is drawn here.
         sample_weights [B] (0 for a data-parallel pad row) and ``group``
-        (the data-parallel process group) go to every train-mode
+        (the process group of the statistics) go to every train-mode
         BatchNorm: the decoder's, and the encoder's unless it is frozen
         (then it normalises with its running statistics and needs
-        neither).  reconstructed is f32 in [0, 1]."""
+        neither).  reconstructed is f32 in [0, 1].
+
+        ``ax`` runs the model under a model axis (``models/layers.py``).
+        With sequence parallelism x and style are this rank's width
+        blocks, ``noise`` is the whole width's draw, and every output
+        comes back whole (gathered once; backward, this rank's slice:
+        the losses on them run alike on every peer)."""
         sched = self.schedule
         x = _nchw(x).to(self.device, torch.float32)
         style = _nchw(style).to(self.device, torch.float32)
-        bn = dict(sample_weights=sample_weights, group=group)
+        bn = dict(sample_weights=sample_weights, group=group, ax=ax)
         z_0 = self.encoder(x, train=train and not frozen_encoder, **bn)
-        emb = self.style_encoder(style)
+        emb = self.style_encoder(style, ax)
         if style_drop_mask is not None:
             keep = (1.0 - style_drop_mask.float()).reshape(-1, 1, 1, 1)
             emb = {k: v * keep.to(v.dtype) for k, v in emb.items()}
         z0 = z_0.float()
-        eps = (torch.randn_like(z0) if noise is None
-               else _nchw(noise).to(z0.device, torch.float32))
+        sp = ax is not None and ax.sequence
+        if noise is None:
+            eps = torch.randn_like(z0)
+        else:
+            eps = _nchw(noise).to(z0.device, torch.float32)
+            if sp:
+                eps = eps.chunk(ax.size, -1)[ax.index]
         z_t = sched.q_sample_with_noise(z0, t, eps)
-        noise_pred = self.unet(z_t, t, emb)
+        noise_pred = self.unet(z_t, t, emb, ax)
         z_0_pred = sched.predict_start_from_noise(z_t, t, noise_pred.float())
         reconstructed = self.decoder(z_0_pred, train=train, **bn)
         reconstructed = (reconstructed.float() + 1.0) / 2.0
-        return {"z_t": _nhwc(z_t), "noise": _nhwc(eps),
-                "noise_pred": _nhwc(noise_pred), "z_0": _nhwc(z_0),
-                "reconstructed": _nhwc(reconstructed)}
+        out = {"z_t": z_t, "noise": eps, "noise_pred": noise_pred,
+               "z_0": z_0, "reconstructed": reconstructed}
+        if sp:
+            out = {k: gather(v, -1, ax) for k, v in out.items()}
+        return {k: _nhwc(v) for k, v in out.items()}
 
     # ---- pieces of the transfer path (NCHW inside) ----------------------
 

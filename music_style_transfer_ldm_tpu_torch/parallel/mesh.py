@@ -1,18 +1,22 @@
-"""The device mesh of data parallelism.
+"""The device mesh: a data axis and a model axis.
 
-A ``Mesh`` names the devices along the ``data`` axis (and a ``model``
-axis of 1).  Under a process group (``parallel/distributed.py``) the data
-axis is the ranks, one card each, and this process holds one index of it;
-that is how the trainers run.  Otherwise it is the devices listed in one
-process, which is how the serving engine runs its replicas; without
-either it is the one local card.
+A ``Mesh`` of shape (n, m) names n x m devices.  Under a process group
+(``parallel/distributed.py``) they are the ranks, one card each, laid out
+row-major as the JAX package's ``np.asarray(devices).reshape(shape)``:
+rank r is data index ``r // m`` and model index ``r % m``.  The m
+consecutive ranks of one data index form its ``model_group`` (they hold
+the same rows and split the parameters, or the width, between them);
+the n ranks of one model index form its ``data_group`` (they hold the
+same parameter blocks and split the rows).  That is how the trainers
+run.  Without a process group the mesh is the devices listed in one
+process, which is how the serving engine runs its replicas, or the one
+local card; a model axis > 1 needs a process group (one process per
+rank), so it raises there.
 
 A tensor carries no sharding in PyTorch, so the JAX package's
 ``batch_sharding`` / ``replicated_sharding`` / ``sequence_sharding`` have
-no counterpart: ``parallel/sharding.py`` hands each rank (or each listed
-device) its rows instead.  Tensor parallelism (a model axis > 1) and
-sequence parallelism are the next slice; asking for either raises
-``NotImplementedError``.
+no counterpart: ``parallel/sharding.py`` hands each rank its rows (and,
+under sequence parallelism, its width block) and its parameter blocks.
 """
 
 from __future__ import annotations
@@ -31,24 +35,48 @@ from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-NEXT_SLICE = ("tensor and sequence parallelism are not ported yet; the "
-              "port runs data parallelism only (a mesh of (n, 1))")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``shape`` {axis: size}; ``devices`` the device that owns each data
-    index; ``group`` the process group when the data axis is ranks (None
-    in one process); ``index`` this process's data index."""
+    """``shape`` {axis: size}; ``devices`` every rank's (or listed)
+    device, row-major over (data, model); ``group`` the process group of
+    every rank (None in one process); ``index`` this process's rank (its
+    slot in ``devices``); ``data_group`` / ``model_group`` the ranks that
+    share its model index / its data index (the world and None at a
+    model axis of 1)."""
 
     shape: Dict[str, int]
     devices: Tuple[torch.device, ...]
     group: Optional[object] = None
     index: int = 0
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    def __post_init__(self):
+        if self.data_group is None and self.model_size == 1:
+            object.__setattr__(self, "data_group", self.group)
 
     @property
     def size(self) -> int:
+        """Every device of the mesh (the world under a process group)."""
+        return len(self.devices)
+
+    @property
+    def data_size(self) -> int:
         return self.shape[DATA_AXIS]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[MODEL_AXIS]
+
+    @property
+    def data_index(self) -> int:
+        return self.index // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.index % self.model_size
 
     @property
     def distributed(self) -> bool:
@@ -84,6 +112,22 @@ def _rank_devices(group, device=None) -> Tuple[torch.device, ...]:
                  for i in slots.tolist())
 
 
+def _axis_groups(n: int, m: int, rank: int):
+    """(data group, model group) of ``rank`` on an (n, m) process mesh.
+    Every rank creates every group, in the same order, as
+    ``dist.new_group`` requires."""
+    data = model = None
+    for j in range(m):
+        g = dist.new_group([d * m + j for d in range(n)])
+        if rank % m == j:
+            data = g
+    for d in range(n):
+        g = dist.new_group([d * m + j for j in range(m)])
+        if rank // m == d:
+            model = g
+    return data, model
+
+
 def make_mesh(shape: Sequence[int] = (-1, 1),
               axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
               devices=None, device=None) -> Mesh:
@@ -93,8 +137,8 @@ def make_mesh(shape: Sequence[int] = (-1, 1),
     card.  ``device`` is this rank's device when the process group was
     started outside ``initialize`` (``distributed.process_device``).
     ``axis_names`` keeps the JAX signature; only its length is read.
-    ValueError for a shape that does not match the devices;
-    NotImplementedError for a model axis > 1."""
+    ValueError for a shape that does not match the devices, and for a
+    model axis > 1 in one process."""
     axis_names = tuple(axis_names)
     group, index = None, 0
     if devices is None and dist.is_initialized():
@@ -105,10 +149,22 @@ def make_mesh(shape: Sequence[int] = (-1, 1),
         devs = tuple(torch.device(d) for d in devices)
     else:
         devs = (resolve_device("cuda"),)
+    if group is None and any(s > 1 for s in tuple(shape)[1:]):
+        raise ValueError(
+            f"a model axis in one process (mesh {tuple(shape)}): tensor and "
+            "sequence parallelism run one process per rank (python -m "
+            "torch.distributed.run --nproc-per-node N ... with "
+            "config.mesh.mesh_shape = (n, m))")
     sizes = _resolve_shape(shape, len(devs))
     if len(sizes) != len(axis_names):
         raise ValueError(f"mesh {sizes} has {len(sizes)} axes but "
                          f"{len(axis_names)} names {axis_names}")
-    if int(np.prod(sizes[1:])) > 1:
-        raise NotImplementedError(NEXT_SLICE)
-    return Mesh({DATA_AXIS: sizes[0], MODEL_AXIS: 1}, devs, group, index)
+    n, m = sizes[0], int(np.prod(sizes[1:]))
+    if m > 1 and group is None:      # a model axis of -1 resolved above 1
+        raise ValueError(f"a model axis of {m} in one process: one process "
+                         "per rank (python -m torch.distributed.run)")
+    data_group = model_group = None
+    if m > 1:
+        data_group, model_group = _axis_groups(n, m, index)
+    return Mesh({DATA_AXIS: n, MODEL_AXIS: m}, devs, group, index,
+                data_group, model_group)

@@ -8,7 +8,10 @@
   sampler, whose DDIM step is the update kernel B
   (``ops/ddim_update.py``).
 * Each request's noise comes from a generator seeded by its own seed, so
-  its result does not depend on how requests were grouped.
+  its result does not depend on how requests were grouped; the programs
+  run on cuDNN's deterministic algorithms (``utils/chips.py
+  deterministic_convs``, scoped to them), so the same request gives the
+  same bits again.
 * ``_finish_outputs`` inverts the decoded images to audio on the device:
   dB -> power -> NNLS -> Griffin-Lim.
 * ``ap`` is the engine's AudioProcessor, on its device: WAV requests
@@ -60,7 +63,9 @@ from music_style_transfer_ldm_tpu_torch.models.ldm import (
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
     fused_content_style_transfer,
 )
-from music_style_transfer_ldm_tpu_torch.utils.chips import fused_bucket_max
+from music_style_transfer_ldm_tpu_torch.utils.chips import (
+    deterministic_convs, fused_bucket_max,
+)
 
 SAMPLERS = ("ddim", "dpm++", "fused", "fused-dpm++")
 
@@ -162,6 +167,7 @@ class InferenceEngine:
                 and bucket <= self.fused_bucket_max)
 
     @torch.no_grad()
+    @deterministic_convs()
     def _transfer(self, content: torch.Tensor, style: torch.Tensor,
                   seeds: np.ndarray) -> dict:
         """The transfer program on a bucket: on the one model, or split
@@ -226,6 +232,7 @@ class InferenceEngine:
         return out
 
     @torch.no_grad()
+    @deterministic_convs()
     def _generate(self, style: torch.Tensor, seed: int) -> dict:
         cfg = self.config
         sampler = ("ddim" if cfg.sampler in ("fused", "fused-dpm++")

@@ -29,6 +29,16 @@ Two more kinds of file, each with ``format_version``:
 
 The JAX package's orbax checkpoints are read where JAX is installed, by
 ``tools/convert_jax_checkpoint.py``, which writes these formats.
+
+A model split over a model axis (``parallel/sharding.py shard_params``)
+is written whole: with ``mesh=`` the savers gather every split tensor
+(its parameters, BatchNorm statistics, EMA and Adam moments) over the
+model group, so with a mesh every rank calls them, and they decide
+who writes: the mesh's rank 0.
+Such a file loads in one process and, through ``restore_train_state``
+with a mesh, into any other mesh, which takes this rank's blocks of the
+split tensors (Adam's moments included): what orbax's global arrays
+give the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +50,10 @@ from typing import Optional
 
 import torch
 
+from music_style_transfer_ldm_tpu_torch.parallel.collectives import is_main
+from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
+    gather_tensors, local_blocks, split_dims,
+)
 from music_style_transfer_ldm_tpu_torch.training.state import (
     TrainState, ema_params_of,
 )
@@ -66,15 +80,56 @@ def _cpu_tree(tree):
     return tree
 
 
+def _whole(module, mesh, tensors: Optional[dict] = None) -> dict:
+    """``tensors`` (default ``module``'s state dict) by name, the ones
+    ``module`` holds split gathered whole (with a mesh)."""
+    tensors = module.state_dict() if tensors is None else tensors
+    if mesh is None:
+        return tensors
+    return gather_tensors(tensors, split_dims(module), mesh)
+
+
+def _opt_param_names(optimizer, module) -> list:
+    """The name of each parameter of ``optimizer``, in its state dict's
+    index order."""
+    names = {id(p): k for k, p in module.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def _opt_state(optimizer, module, mesh, whole: bool) -> dict:
+    """``optimizer``'s state dict with the moments of split parameters
+    gathered whole (``whole``), or cut to this rank's blocks."""
+    sd = optimizer.state_dict()
+    dims = split_dims(module) if mesh is not None else {}
+    if not dims:
+        return sd
+    # the packed state's dicts are the optimizer's own: copy, then change
+    sd = {**sd, "state": {i: dict(st) for i, st in sd["state"].items()}}
+    names = _opt_param_names(optimizer, module)
+    for i, st in sd["state"].items():
+        name = names[int(i)]
+        if name not in dims:
+            continue
+        moments = {k: v for k, v in st.items()
+                   if isinstance(v, torch.Tensor) and v.ndim}
+        fn = gather_tensors if whole else local_blocks
+        st.update(fn(moments, {k: dims[name] for k in moments}, mesh))
+    return sd
+
+
 def save_checkpoint(path: str | Path, model, ema_params: Optional[dict] = None,
-                    distill: Optional[dict] = None) -> None:
+                    distill: Optional[dict] = None, mesh=None) -> None:
     """Write ``model``'s state (float32, on the CPU) and the optional EMA
-    parameters and distillation metadata."""
+    parameters and distillation metadata; with ``mesh``, every rank calls
+    it and rank 0 writes the whole tensors."""
+    params = _whole(model, mesh)
+    ema = None if ema_params is None else _whole(model, mesh, ema_params)
+    if mesh is not None and not is_main(mesh):
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": _cpu_state(model.state_dict()),
-                "ema_params": (None if ema_params is None
-                               else _cpu_state(ema_params)),
+    torch.save({"params": _cpu_state(params),
+                "ema_params": None if ema is None else _cpu_state(ema),
                 "distill": None if distill is None else dict(distill),
                 "format_version": FORMAT_VERSION}, path)
 
@@ -104,13 +159,17 @@ def load_checkpoint(path: str | Path) -> dict:
     return _load(path, "params")
 
 
-def save_autoencoder(path: str | Path, encoder, decoder) -> None:
+def save_autoencoder(path: str | Path, encoder, decoder, mesh=None) -> None:
     """Write the encoder's and decoder's state (parameters and BatchNorm
-    statistics, float32, on the CPU): the inputs of the LDM phase."""
+    statistics, float32, on the CPU): the inputs of the LDM phase.  With
+    ``mesh``, every rank calls it and rank 0 writes the whole tensors."""
+    enc, dec = _whole(encoder, mesh), _whole(decoder, mesh)
+    if mesh is not None and not is_main(mesh):
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": {"encoder": _cpu_state(encoder.state_dict()),
-                           "decoder": _cpu_state(decoder.state_dict())},
+    torch.save({"params": {"encoder": _cpu_state(enc),
+                           "decoder": _cpu_state(dec)},
                 "format_version": FORMAT_VERSION}, path)
 
 
@@ -141,17 +200,24 @@ def load_feature_checkpoint(path: str | Path) -> dict:
 
 
 def save_train_state(path: str | Path, state: TrainState,
-                     extra: Optional[dict] = None) -> None:
+                     extra: Optional[dict] = None, mesh=None) -> None:
     """A checkpoint of the whole train state: ``load_ldm`` reads it as it
     reads any checkpoint, ``restore_train_state`` resumes from it.
-    ``extra`` (plain numbers) rides along under the key ``extra``."""
+    ``extra`` (plain numbers) rides along under the key ``extra``.  With
+    ``mesh``, every rank calls it and rank 0 writes the whole tensors."""
+    model = state.model
+    params = _whole(model, mesh)
+    ema = (None if state.ema_params is None
+           else _whole(model, mesh, state.ema_params))
+    opt = _opt_state(state.optimizer, model, mesh, whole=True)
+    if mesh is not None and not is_main(mesh):
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {"params": _cpu_state(state.model.state_dict()),
-               "ema_params": (None if state.ema_params is None
-                              else _cpu_state(state.ema_params)),
+    payload = {"params": _cpu_state(params),
+               "ema_params": None if ema is None else _cpu_state(ema),
                "distill": None,
-               "opt_state": _cpu_tree(state.optimizer.state_dict()),
+               "opt_state": _cpu_tree(opt),
                "step": int(state.step),
                "format_version": FORMAT_VERSION}
     if extra:
@@ -159,23 +225,33 @@ def save_train_state(path: str | Path, state: TrainState,
     torch.save(payload, path)
 
 
-def restore_train_state(path: str | Path, state: TrainState) -> TrainState:
+def restore_train_state(path: str | Path, state: TrainState,
+                        mesh=None) -> TrainState:
     """Load a train-state checkpoint into ``state``'s model and optimizer
     (in place) and return the state with its step and EMA.  A template
     that tracks an EMA but a checkpoint without one seeds the EMA from
-    the restored weights."""
+    the restored weights.  With ``mesh``, a model split over its model
+    axis takes this rank's blocks of the whole tensors, Adam's moments
+    and the EMA included."""
     payload = load_checkpoint(path)
     if "opt_state" not in payload:
         raise ValueError(f"{path} holds no optimizer state: not a "
                          "train-state checkpoint")
-    state.model.load_state_dict(payload["params"])
+    dims = split_dims(state.model) if mesh is not None else {}
+    state.model.load_state_dict(local_blocks(payload["params"], dims, mesh)
+                                if dims else payload["params"])
     state.optimizer.load_state_dict(payload["opt_state"])
+    if dims:
+        state.optimizer.load_state_dict(_opt_state(
+            state.optimizer, state.model, mesh, whole=False))
     ema = None
     if state.ema_params is not None:
         if payload.get("ema_params") is not None:
             dev = next(iter(state.ema_params.values())).device
-            ema = {k: v.float().to(dev)
-                   for k, v in payload["ema_params"].items()}
+            saved = payload["ema_params"]
+            if dims:
+                saved = local_blocks(saved, dims, mesh)
+            ema = {k: v.float().to(dev) for k, v in saved.items()}
         else:
             print(f"NOTE: checkpoint {path} has no ema_params; seeding the "
                   "EMA from the restored raw weights.", flush=True)

@@ -45,6 +45,12 @@ modules do), whose gradient mean over the ranks is then the gradient of
 the global loss, so a step equals the one-process step on the global
 batch.  Rank 0 alone writes the in-flight saves and the students, with a
 barrier after each.
+
+On an (n, m) mesh the student is split over the model axis (tensor
+parallelism of its UNet, the JAX package's ``shard_params`` of the
+student; ``parallel/sharding.py``), rows and draws are keyed by the
+data index, and each stage's teacher is whole on every rank
+(``gather_params`` of its copy).  The saves hold the whole tensors.
 """
 
 from __future__ import annotations
@@ -66,9 +72,11 @@ from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
 from music_style_transfer_ldm_tpu_torch.models.ldm import LDM, _denoise_fn
 from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
     DataParallel, all_reduce_mean, all_reduce_sum, barrier, is_main,
+    model_axis,
 )
 from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
-    shard_params, step_rows, training_mesh,
+    gather_params, local_blocks, shard_params, split_dims, step_rows,
+    sync_replicated, training_mesh,
 )
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
@@ -161,14 +169,18 @@ class Stage:
         return self.n_teacher // self.n_student
 
 
-def _save_inflight(path: Path, student: LDM, optimizer, meta: dict) -> None:
+def _save_inflight(path: Path, student: LDM, optimizer, meta: dict,
+                   mesh=None) -> None:
     """Write the live stage (a train-state checkpoint with the stage's
     identity in ``extra``) aside, then rename it into place: a crash
-    mid-write leaves the previous save (or none), never half a file."""
+    mid-write leaves the previous save (or none), never half a file.
+    With ``mesh``, every rank calls it and rank 0 writes."""
     tmp = path.with_name(path.name + ".tmp")
     ckpt_lib.save_train_state(tmp, TrainState(student, optimizer,
-                                              meta["done"]), extra=meta)
-    os.replace(tmp, path)
+                                              meta["done"]), extra=meta,
+                              mesh=mesh)
+    if mesh is None or is_main(mesh):
+        os.replace(tmp, path)
 
 
 class ProgressiveDistiller:
@@ -191,6 +203,7 @@ class ProgressiveDistiller:
         self.t_max = int(t_max if t_max is not None
                          else config.diffusion.transfer_timesteps)
         self.generator = torch.Generator(device=self.device)
+        self.ax = model_axis(self.mesh)   # tensor parallel; None at m = 1
         # the student's UNet as a step runs it: DistributedDataParallel
         # under a process group
         self.train_model = DataParallel(self.mesh)
@@ -206,12 +219,13 @@ class ProgressiveDistiller:
                     n_student: int, lr: float, guidance: float = 1.0
                     ) -> Stage:
         """A stage from the student's current weights: its grid, the
-        teacher (a deep copy of the student, sharing no storage with it
-        and taking no gradient) and a fresh Adam over the student's
-        UNet."""
+        teacher (a deep copy of the student, sharing no storage with it,
+        taking no gradient and whole on every rank) and a fresh Adam over
+        the student's UNet."""
         teacher_grid, _ = distill_stage_grids(self.t_max, n_teacher,
                                               n_teacher // n_student)
-        teacher = copy.deepcopy(student).eval().requires_grad_(False)
+        teacher = gather_params(copy.deepcopy(student), self.mesh)
+        teacher = teacher.eval().requires_grad_(False)
         return Stage(index, n_teacher, n_student, guidance, teacher_grid,
                      teacher,
                      make_optimizer("adam", list(student.unet.parameters()),
@@ -223,19 +237,22 @@ class ProgressiveDistiller:
         """One optimizer step of ``stage`` on this rank's rows (``weights``
         their validity, None when none is padded), with the draws of
         (seed, stage, step); returns the global loss, on the device."""
-        lat = self.config.model.image_size // 8
         segment, noise = self.draws(
             seed, stage.index, step, content.shape[0], stage.n_student,
-            (lat, lat, self.config.model.latent_dim))
+            (content.shape[1] // 8, content.shape[2] // 8,
+             self.config.model.latent_dim))
         denominator = None
         if self.mesh.distributed and weights is not None:
-            total = all_reduce_sum(weights.float().sum(), self.mesh.group)
-            denominator = torch.clamp(total, min=1.0) / self.mesh.size
+            total = all_reduce_sum(weights.float().sum(),
+                                   self.mesh.data_group)
+            denominator = (torch.clamp(total, min=1.0)
+                           / self.mesh.data_size)
         stage.optimizer.zero_grad(set_to_none=True)
         loss = self.stage_loss(student, stage.teacher, stage.teacher_grid,
                                stage.factor, stage.guidance, content, style,
                                segment, noise, weights, denominator)
         loss.backward()
+        sync_replicated(student, self.ax)
         stage.optimizer.step()
         return all_reduce_mean(loss.detach(), self.mesh)
 
@@ -243,14 +260,16 @@ class ProgressiveDistiller:
               n_student: int, latent_shape: Sequence[int]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(segment [B] in [0, n_student), NHWC noise [B, *latent_shape])
-        of one step for this rank's ``batch`` rows, from a generator
+        of one step for this data index's ``batch`` rows, from a generator
         seeded by (seed, stage, step) (the counterpart of the JAX
         package's fold_in of stage * 1e6 + step into its base key): drawn
         for rows 0 .. max(configured batch, padded global batch) - 1
-        (row i of a global batch takes draw i), this rank's rows kept."""
-        gen = self.generator
-        n = max(self.config.train.batch_size, batch * self.mesh.size)
-        rows = slice(self.mesh.index * batch, (self.mesh.index + 1) * batch)
+        (row i of a global batch takes draw i), this data index's rows
+        kept.  ``latent_shape`` is the batch's latent (H / 8, W / 8,
+        latent_dim)."""
+        gen, mesh = self.generator, self.mesh
+        n = max(self.config.train.batch_size, batch * mesh.data_size)
+        rows = slice(mesh.data_index * batch, (mesh.data_index + 1) * batch)
         gen.manual_seed(step_seed(seed + 777, stage * 1_000_000 + step))
         segment = torch.randint(0, n_student, (n,), device=self.device,
                                 generator=gen)
@@ -307,7 +326,7 @@ class ProgressiveDistiller:
             denominator = (batch if weights is None
                            else torch.clamp(weights.float().sum(), min=1.0))
         with self._autocast():
-            eps_s = self.train_model(student.unet)(z_t, t, emb)
+            eps_s = self.train_model(student.unet)(z_t, t, emb, self.ax)
         x0_s = ((z_t - torch.sqrt(1.0 - ab4(t)) * eps_s.float())
                 / torch.sqrt(ab4(t)))
         per = torch.mean(torch.square(x0_s - x0_target), dim=(1, 2, 3))
@@ -341,7 +360,7 @@ class ProgressiveDistiller:
 
         Returns (student, info) with info {"steps", "t_max", "stages",
         "guidance", "history": [{teacher_steps, student_steps, loss_head,
-        loss_tail}]}."""
+        loss_tail}]}; the student is whole on every rank."""
         stages = [int(n) for n in stages]
         students = student_steps(stages)
         out_dir = Path(out_dir)
@@ -376,8 +395,8 @@ class ProgressiveDistiller:
                     if (int(meta["teacher_steps"]) == n_teacher
                             and int(meta["student_steps"]) == n_student):
                         done = ckpt_lib.restore_train_state(
-                            inflight, TrainState(student,
-                                                 stage.optimizer)).step
+                            inflight, TrainState(student, stage.optimizer),
+                            mesh).step
                         head_override = (float(meta["head"])
                                          if done >= 20 else None)
                         if main:
@@ -387,7 +406,9 @@ class ProgressiveDistiller:
                 except ckpt_lib.LOAD_ERRORS + (KeyError,) as e:
                     print(f"  distill: in-flight restore failed "
                           f"({e!r}); restarting stage", flush=True)
-                    student.load_state_dict(stage.teacher.state_dict())
+                    student.load_state_dict(local_blocks(
+                        stage.teacher.state_dict(), split_dims(student),
+                        mesh))
                     stage = self.start_stage(student, stage_idx, n_teacher,
                                              n_student, lr, stage.guidance)
                     done = 0
@@ -412,13 +433,12 @@ class ProgressiveDistiller:
                         head = (head_override if head_override is not None
                                 else float(torch.stack(losses[:20]).mean())
                                 if len(losses) >= 20 else 0.0)
-                        if main:
-                            _save_inflight(inflight, student,
-                                           stage.optimizer, {
-                                               "done": done,
-                                               "teacher_steps": n_teacher,
-                                               "student_steps": n_student,
-                                               "head": head})
+                        _save_inflight(inflight, student,
+                                       stage.optimizer, {
+                                           "done": done,
+                                           "teacher_steps": n_teacher,
+                                           "student_steps": n_student,
+                                           "head": head}, mesh)
                         barrier(mesh)
                     if done >= steps_per_stage:
                         break
@@ -441,20 +461,21 @@ class ProgressiveDistiller:
             history.append({"teacher_steps": n_teacher,
                             "student_steps": n_student,
                             "loss_head": head, "loss_tail": tail})
+            ckpt_lib.save_checkpoint(
+                out_dir / f"distilled_{n_student}.pt", student,
+                distill={"steps": n_student, "t_max": self.t_max,
+                         "stages": stages[:stage_idx + 1],
+                         "guidance": guidance}, mesh=mesh)
             if main:
                 logger.log(epoch=stage_idx, teacher_steps=n_teacher,
                            student_steps=n_student, steps=done,
                            loss_head=head, loss_tail=tail,
                            seconds=time.time() - t0)
-                ckpt_lib.save_checkpoint(
-                    out_dir / f"distilled_{n_student}.pt", student,
-                    distill={"steps": n_student, "t_max": self.t_max,
-                             "stages": stages[:stage_idx + 1],
-                             "guidance": guidance})
                 if inflight.exists():   # the stage landed; drop the save
                     inflight.unlink()
             barrier(mesh)
 
+        gather_params(student, mesh)
         info = {"steps": students[-1], "t_max": self.t_max,
                 "stages": stages, "guidance": guidance, "history": history}
         return student.requires_grad_(False), info

@@ -13,6 +13,16 @@
 
 ``PlateauState`` is ReduceLROnPlateau (mode 'min') on the host; a new
 rate goes into the optimizer's param groups between epochs.
+
+On a model axis (``parallel/sharding.py``) each rank's optimizer holds
+its parameters' blocks, and Adam's and AdamW's updates are elementwise,
+so they need nothing of the other blocks; the replicated parameters
+step alike on every peer because every peer takes model index 0's
+gradients for them first (``sharding.sync_replicated``).  The only global
+quantity the loop reads, the plateau metric, is the epoch's mean loss,
+averaged over every rank (``collectives.all_reduce_mean``), so every
+peer gets the same bits and takes the same decision; no gradient norm
+is taken.
 """
 
 from __future__ import annotations

@@ -35,7 +35,8 @@ def ema_update(ema_params: Dict[str, torch.Tensor], model: nn.Module,
                decay: float, step: int) -> Dict[str, torch.Tensor]:
     """ema <- d ema + (1 - d) params with the warm-up d = min(decay,
     (1 + step) / (10 + step)), accumulated in f32 (a 0.999 step rounds
-    away in bf16)."""
+    away in bf16).  Elementwise, so on a model axis each rank keeps the
+    EMA of its own parameter blocks."""
     s = np.float32(step)
     d = np.minimum(np.float32(decay),
                    (np.float32(1.0) + s) / (np.float32(10.0) + s))

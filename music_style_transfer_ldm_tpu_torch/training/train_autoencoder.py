@@ -33,6 +33,13 @@ rank; the loss backpropagated is world x (the rank's weighted sum) /
 is the gradient of the global loss, and validation renormalises the
 same way.  The reported losses are the global ones, so the plateau
 scheduler steps every rank alike; rank 0 alone writes.
+
+On an (n, m) mesh (``config.mesh.mesh_shape``) the encoder's conv2/bn2
+and the decoder's deconv1/bn1 split over the model axis (tensor
+parallelism, ``parallel/sharding.py``; the JAX AETrainer places no batch
+width-sharded, so neither does this one), rows and loss weights are keyed
+by the data index, and the frozen LPIPS and VGGish trunks stay whole on
+every rank.  Checkpoints hold the whole tensors.
 """
 
 from __future__ import annotations
@@ -53,9 +60,10 @@ from music_style_transfer_ldm_tpu_torch.models.autoencoder import (
 )
 from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
     DataParallel, all_reduce_mean, barrier, global_loss_weights, is_main,
+    model_axis,
 )
 from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
-    step_rows, training_mesh,
+    shard_params, step_rows, sync_replicated, training_mesh,
 )
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
@@ -74,11 +82,11 @@ class Autoencoder(nn.ModuleDict):
     pair's (what DistributedDataParallel wraps)."""
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                sample_weights: Optional[torch.Tensor] = None, group=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                sample_weights: Optional[torch.Tensor] = None, group=None,
+                ax=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW x -> (z, recon in [-1, 1]), NCHW."""
-        z = self["encoder"](x, train, sample_weights, group)
-        return z, self["decoder"](z, train, sample_weights, group)
+        z = self["encoder"](x, train, sample_weights, group, ax)
+        return z, self["decoder"](z, train, sample_weights, group, ax)
 
 
 def _mean(losses, device) -> torch.Tensor:
@@ -114,21 +122,22 @@ class AETrainer:
         self.plateau = plateau_init(ct.learning_rate, factor=ct.lr_factor,
                                     patience=ct.lr_patience,
                                     min_lr=ct.lr_min)
+        self.ax = model_axis(self.mesh)   # tensor parallel; None at m = 1
         # the module a step runs: DistributedDataParallel under a group
         self.train_model = DataParallel(self.mesh)
 
     # ---------------- state ------------------------------------------------
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """A fresh encoder and decoder (weights from ``seed``) in one
-        module, ``model.encoder`` and ``model.decoder``, with AdamW over
-        both."""
+        """A fresh encoder and decoder (weights from ``seed``; on a mesh
+        rank 0's, split over the model axis) in one module,
+        ``model.encoder`` and ``model.decoder``, with AdamW over both."""
         latent = self.config.model.latent_dim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = Autoencoder({"encoder": SpectrogramEncoder(latent),
                                  "decoder": SpectrogramDecoder(latent)})
-        model = model.to(self.device)
+        model = shard_params(model.to(self.device), self.mesh)
         optimizer = make_optimizer("adamw", list(model.parameters()),
                                    self.config.train.learning_rate)
         return TrainState(model=model, optimizer=optimizer, step=0)
@@ -141,8 +150,9 @@ class AETrainer:
         """NHWC x in [0, 1] -> NHWC (z, recon in [-1, 1]); ``train``
         normalises with the batch's statistics (the rows ``weights``
         keeps, over every rank) and updates the running ones."""
-        group = self.mesh.group if train else None
-        z, recon = model(x.permute(0, 3, 1, 2), train, weights, group)
+        group = self.mesh.data_group if train else None
+        z, recon = model(x.permute(0, 3, 1, 2), train, weights, group,
+                         self.ax)
         return z.permute(0, 2, 3, 1), recon.permute(0, 2, 3, 1)
 
     def _loss(self, model, x: torch.Tensor, train: bool,
@@ -170,6 +180,7 @@ class AETrainer:
             loss = self._loss(self.train_model(state.model), x, train=True,
                               weights=weights)
             loss.backward()
+        sync_replicated(state.model, self.ax)
         state.optimizer.step()
         return TrainState(state.model, state.optimizer,
                           state.step + 1), all_reduce_mean(loss.detach(),
@@ -196,18 +207,19 @@ class AETrainer:
         step and dropping the metric rows of the epochs it replays."""
         num_epochs = num_epochs or self.config.train.num_epochs
         out_dir = Path(out_dir)
+        mesh = self.mesh
         if state is None:
             state = self.init_state(self.config.train.seed)
         start_epoch = 0
         if resume_from is not None:
-            state = ckpt_lib.restore_train_state(resume_from, state)
+            state = ckpt_lib.restore_train_state(resume_from, state, mesh)
             start_epoch = state.step // max(len(train_loader), 1)
         main = is_main(self.mesh)
         logger = (MetricLogger(out_dir / "metrics.csv",
                                resume=resume_from is not None,
                                truncate_from_epoch=start_epoch)
                   if main else None)
-        dev, mesh = self.device, self.mesh
+        dev = self.device
 
         def placer(loader):
             def place(item):
@@ -244,18 +256,17 @@ class AETrainer:
                            seconds=time.time() - t0)
             if val_loss < best_val:
                 best_val = val_loss
-                if main:
-                    ckpt_lib.save_autoencoder(out_dir / "pretrained.pt",
-                                              state.model.encoder,
-                                              state.model.decoder)
+                ckpt_lib.save_autoencoder(out_dir / "pretrained.pt",
+                                          state.model.encoder,
+                                          state.model.decoder, mesh)
                 barrier(mesh)
         if main:
             logger.plot(out_dir / "autoencoder_loss.png",
                         ["train_loss", "val_loss"])
-            ckpt_lib.save_autoencoder(out_dir / "pretrained_final.pt",
-                                      state.model.encoder,
-                                      state.model.decoder)
-            ckpt_lib.save_train_state(out_dir / "train_state_final.pt",
-                                      state)
+        ckpt_lib.save_autoencoder(out_dir / "pretrained_final.pt",
+                                  state.model.encoder,
+                                  state.model.decoder, mesh)
+        ckpt_lib.save_train_state(out_dir / "train_state_final.pt",
+                                  state, mesh=mesh)
         barrier(mesh)
         return state

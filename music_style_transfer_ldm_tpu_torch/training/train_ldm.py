@@ -33,6 +33,16 @@ backpropagated is world x (the rank's weighted sum) / (the global sum of
 weights), so DistributedDataParallel's gradient mean is the gradient of
 the global loss.  Rank 0 alone writes checkpoints, ``metrics.csv`` and
 plots.
+
+On an (n, m) mesh (``config.mesh.mesh_shape``, n x m ranks) the model's
+layers split over the model axis (``parallel/sharding.py``): tensor
+parallelism, or with ``config.mesh.sequence_parallel`` sequence
+parallelism, where each rank takes its block of the batch's width and
+the model's outputs and the losses are whole on every peer.  Rows,
+draws and loss weights are keyed by the data index (model peers hold the
+same rows); the noise is drawn for the batch's whole latent width.  A
+checkpoint holds the whole tensors (gathered; every rank of the model
+group calls the save, rank 0 writes) and loads into any mesh.
 """
 
 from __future__ import annotations
@@ -52,10 +62,11 @@ from music_style_transfer_ldm_tpu_torch.losses.feature import (
 )
 from music_style_transfer_ldm_tpu_torch.models.ldm import build_ldm
 from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
-    DataParallel, all_reduce_mean, barrier, global_loss_weights, is_main,
+    DataParallel, all_reduce_mean, barrier, gather, global_loss_weights,
+    is_main, model_axis,
 )
 from music_style_transfer_ldm_tpu_torch.parallel.sharding import (
-    step_rows, training_mesh,
+    shard_params, step_rows, sync_replicated, training_mesh,
 )
 from music_style_transfer_ldm_tpu_torch.training import checkpoint as ckpt_lib
 from music_style_transfer_ldm_tpu_torch.training.metrics import MetricLogger
@@ -127,6 +138,12 @@ class LDMTrainer:
                                     patience=ct.ldm_lr_patience,
                                     min_lr=ct.lr_min)
         self.generator = torch.Generator(device=self.device)
+        # the model axis (None at m = 1) and the BatchNorm statistics'
+        # group: the data group, or every rank when the width is split
+        self.ax = model_axis(self.mesh, config.mesh.sequence_parallel)
+        self.sequence_parallel = self.ax is not None and self.ax.sequence
+        self.stats_group = (self.mesh.group if self.sequence_parallel
+                            else self.mesh.data_group)
         # the module a step runs: DistributedDataParallel under a group
         self.train_model = DataParallel(self.mesh)
 
@@ -142,13 +159,15 @@ class LDMTrainer:
         payload, phase 1's result) replaces the encoder's and decoder's
         parameters and BatchNorm statistics before the encoder is frozen
         and before the optimizer and the EMA are made, so the EMA starts
-        from the transplanted weights."""
+        from the transplanted weights.  On a mesh every rank starts from
+        rank 0's weights, split over the model axis (``shard_params``)."""
         model = build_ldm(self.config, dtype=torch.float32,
                           device=self.device, seed=seed)
         if pretrained_autoencoder is not None:
             ae = pretrained_autoencoder["params"]
             model.encoder.load_state_dict(ae["encoder"])
             model.decoder.load_state_dict(ae["decoder"])
+        shard_params(model, self.mesh)
         params = freeze_encoder(model)
         optimizer = make_optimizer("adam", params,
                                    self.config.train.learning_rate)
@@ -172,15 +191,21 @@ class LDMTrainer:
         t [B], noise NHWC latents, ``weights`` [B] validity (0 for a pad
         row).  Updates the decoder's BatchNorm running statistics (train
         mode), as the step does.  Under a process group the values are
-        this rank's share: their mean over the ranks is the global
-        weighted loss."""
+        this rank's share: their mean over the data indices is the global
+        weighted loss.  Under sequence parallelism content and style are
+        this rank's width blocks and ``noise`` the whole width's; the
+        losses run on whole images."""
         content = as_unit_images(content)
         style = as_unit_images(style)
         w, scale = global_loss_weights(weights, self.mesh)
         with self._autocast():
             out = model(content, style, t, train=True, frozen_encoder=True,
                         style_drop_mask=style_drop_mask, noise=noise,
-                        sample_weights=weights, group=self.mesh.group)
+                        sample_weights=weights, group=self.stats_group,
+                        ax=self.ax)
+            if self.sequence_parallel:
+                content, style = (gather(x, 2, self.ax)
+                                  for x in (content, style))
             comp = (self.compression_feature.distance
                     if self.compression_feature is not None else None)
             denoising = diffusion_loss(out["noise_pred"], out["noise"], w)
@@ -203,28 +228,42 @@ class LDMTrainer:
             metrics = {k: v * scale for k, v in metrics.items()}
         return total, {k: v.detach().float() for k, v in metrics.items()}
 
+    def latent_shape(self, content: torch.Tensor) -> Tuple[int, int, int]:
+        """The NHWC latent (H / 8, W / 8, latent_dim) of a batch of
+        ``content`` [B, H, W, 1] as passed (this rank's width block under
+        sequence parallelism: W is then the whole padded width)."""
+        width = content.shape[2] * (self.ax.size if self.sequence_parallel
+                                    else 1)
+        return (content.shape[1] // 8, width // 8,
+                self.config.model.latent_dim)
+
     def draws(self, step: int, batch: int,
               t: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None,
-              style_drop_mask: Optional[torch.Tensor] = None):
+              style_drop_mask: Optional[torch.Tensor] = None,
+              latent_shape: Optional[Tuple[int, int, int]] = None):
         """(t, noise, style-drop mask or None) of step ``step`` for this
-        rank's ``batch`` rows: those not given are drawn, in that order,
-        from a generator seeded by ``step_seed(seed, step)`` for rows 0 ..
-        max(configured batch, padded global batch) - 1, and this rank's
-        rows kept.  Row i of a global batch takes draw i whatever the
-        batch's length, so a short batch split over ranks with pad rows
-        draws what one process draws for it unpadded."""
-        cfg, dev, gen = self.config, self.device, self.generator
-        n = max(cfg.train.batch_size, batch * self.mesh.size)
-        rows = slice(self.mesh.index * batch, (self.mesh.index + 1) * batch)
+        data index's ``batch`` rows: those not given are drawn, in that
+        order, from a generator seeded by ``step_seed(seed, step)`` for
+        rows 0 .. max(configured batch, padded global batch) - 1, and this
+        data index's rows kept.  Row i of a global batch takes draw i
+        whatever the batch's length, so a short batch split over ranks
+        with pad rows draws what one process draws for it unpadded.  The
+        noise has the batch's NHWC ``latent_shape`` (default the square
+        latent of ``image_size``)."""
+        cfg, dev, gen, mesh = self.config, self.device, self.generator, \
+            self.mesh
+        n = max(cfg.train.batch_size, batch * mesh.data_size)
+        rows = slice(mesh.data_index * batch, (mesh.data_index + 1) * batch)
         gen.manual_seed(step_seed(cfg.train.seed, step))
         if t is None:
             t = torch.randint(0, cfg.diffusion.num_timesteps, (n,),
                               device=dev, generator=gen)[rows]
         if noise is None:
             lat = cfg.model.image_size // 8
-            noise = torch.randn((n, lat, lat, cfg.model.latent_dim),
-                                device=dev, generator=gen)[rows]
+            shape = latent_shape or (lat, lat, cfg.model.latent_dim)
+            noise = torch.randn((n, *shape), device=dev,
+                                generator=gen)[rows]
         p_drop = float(cfg.train.style_dropout)
         if style_drop_mask is None and p_drop > 0.0:
             style_drop_mask = (torch.rand(n, device=dev, generator=gen)
@@ -242,7 +281,8 @@ class LDMTrainer:
         mask are this rank's rows of ``draws`` unless given.  The metrics
         are the global batch's, on the device."""
         t, noise, style_drop_mask = self.draws(
-            state.step, content.shape[0], t, noise, style_drop_mask)
+            state.step, content.shape[0], t, noise, style_drop_mask,
+            self.latent_shape(content))
         state.optimizer.zero_grad(set_to_none=True)
         # weights by keyword only when given: one process without pad
         # rows calls _losses exactly as before
@@ -250,6 +290,7 @@ class LDMTrainer:
         total, metrics = self._losses(self.train_model(state.model), content,
                                       style, t, noise, style_drop_mask, **kw)
         total.backward()
+        sync_replicated(state.model, self.ax)
         state.optimizer.step()
         ema = state.ema_params
         if ema is not None:
@@ -275,7 +316,7 @@ class LDMTrainer:
         def place(item):
             i, ((content, _), (style, _)) = item
             (content, style), w = step_rows((content, style), mesh, loader,
-                                            i)
+                                            i, self.sequence_parallel)
             return content, style, w
 
         collected = []
@@ -307,7 +348,8 @@ class LDMTrainer:
             state = self.init_state(cfg.seed, pretrained_autoencoder)
         start_epoch = 0
         if resume_from is not None:
-            state = ckpt_lib.restore_train_state(resume_from, state)
+            state = ckpt_lib.restore_train_state(resume_from, state,
+                                                 self.mesh)
             start_epoch = state.step // max(len(train_loader), 1)
         main = is_main(self.mesh)
         logger = (MetricLogger(out_dir / "metrics.csv",
@@ -325,15 +367,15 @@ class LDMTrainer:
                 logger.log(epoch=epoch, lr=self.plateau.lr,
                            seconds=time.time() - t0, **avgs)
             if epoch % cfg.ckpt_every_epochs == 0:
+                ckpt_lib.save_train_state(out_dir / f"ldm_{epoch}.pt",
+                                          state, mesh=self.mesh)
                 if main:
-                    ckpt_lib.save_train_state(out_dir / f"ldm_{epoch}.pt",
-                                              state)
                     keys = list(METRIC_KEYS)
                     logger.plot(out_dir / f"ldm_loss_{epoch}.png", keys)
                     logger.plot(out_dir / f"ldm_loss_log_{epoch}.png", keys,
                                 logscale=True)
                 barrier(self.mesh)
-        if main:
-            ckpt_lib.save_train_state(out_dir / "ldm_final.pt", state)
+        ckpt_lib.save_train_state(out_dir / "ldm_final.pt", state,
+                                  mesh=self.mesh)
         barrier(self.mesh)
         return state

@@ -1,4 +1,5 @@
-"""Device selection, the fused-route bucket limit, exact float32.
+"""Device selection, the fused-route bucket limit, exact float32,
+deterministic convolutions.
 
 Entry points default to ``device="cuda"`` and raise when there is no
 card: there is no silent CPU path.  Tests pass ``device="cpu"``.
@@ -38,6 +39,20 @@ def exact_float32(device: torch.device):
             yield
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms (and no autotuning) while the
+    block runs, then the process's settings again: the default algorithms
+    use atomics, so a seeded request run twice moved its image by an ulp
+    and, through Griffin-Lim, its audio by up to 1.5e-3.  Scoped, so the
+    trainers in the same process keep their own settings; TF32 is left as
+    the process has it.  Usable as a decorator."""
+    with torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=torch.backends.cudnn.allow_tf32):
+        yield
 
 
 def resolve_device(device="cuda") -> torch.device:

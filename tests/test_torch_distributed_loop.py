@@ -35,7 +35,6 @@ from music_style_transfer_ldm_tpu_torch import parallel
 from music_style_transfer_ldm_tpu_torch.config import default_config
 from music_style_transfer_ldm_tpu_torch.datasets.loader import BatchLoader
 from music_style_transfer_ldm_tpu_torch.training import LDMTrainer
-from music_style_transfer_ldm_tpu_torch.training import train_ldm
 
 
 def main():
@@ -48,12 +47,15 @@ def main():
                                     compute_dtype="float32",
                                     style_dropout=0.5)
     cfg.model = dataclasses.replace(cfg.model, image_size=64)
-    saves, real_save = [], train_ldm.ckpt_lib.save_train_state
+    # every rank calls the savers (they gather split tensors); count the
+    # files each rank writes
+    saves, real_save = [], torch.save
 
-    def counted(path, state, *a, **k):
-        saves.append(str(path))
-        return real_save(path, state, *a, **k)
-    train_ldm.ckpt_lib.save_train_state = counted
+    def counted(obj, path, *a, **k):
+        if str(path).endswith(".pt"):
+            saves.append(str(path))
+        return real_save(obj, path, *a, **k)
+    torch.save = counted
 
     def run(tag, **kw):
         tr = LDMTrainer(cfg, perceptual=False, device="cpu")
@@ -73,6 +75,7 @@ def main():
     _, d_first = run("first", num_epochs=1)
     rest, d_rest = run("rest", num_epochs=2,
                        resume_from=f"{spec['out_dir']}/first/ldm_0.pt")
+    torch.save = real_save
     torch.save({"d_full": d_full, "d_split": d_first + d_rest,
                 "full": full.model.state_dict(),
                 "resumed": rest.model.state_dict(),

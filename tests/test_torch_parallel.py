@@ -115,16 +115,21 @@ def test_make_mesh_shapes_and_errors():
         make_mesh((-1, 3), devices=["cpu"] * 8)     # 8 not divisible by 3
     with pytest.raises(ValueError):
         jax_make_mesh((3, 2))                       # the JAX package agrees
-    with pytest.raises(NotImplementedError, match="tensor and sequence"):
+    with pytest.raises(ValueError, match="one process per rank"):
         make_mesh((2, 4), devices=["cpu"] * 8)      # JAX: dp 2 x tp 4
     assert jax_make_mesh((2, 4)).shape["model"] == 4
+    # a model axis is ranks: (2, 4) over 8 ranks, this one rank 6
+    rank6 = Mesh({"data": 2, "model": 4}, (CPU,) * 8, group=object(),
+                 index=6)
+    assert (rank6.data_index, rank6.model_index, rank6.size) == (1, 2, 8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()                             # no silent CPU mesh
     cfg = default_config()
     cfg.mesh = dataclasses.replace(cfg.mesh, sequence_parallel=True)
-    with pytest.raises(NotImplementedError):
-        training_mesh(cfg.mesh, device="cpu")
+    # sequence parallelism is taken (a no-op at a model axis of 1)
+    assert training_mesh(cfg.mesh, device="cpu").shape == {"data": 1,
+                                                           "model": 1}
     with pytest.raises(ValueError, match="one process per card"):
         training_mesh(default_config().mesh,
                       make_mesh((2, 1), devices=["cpu", "cpu"]))
