@@ -115,6 +115,19 @@ Phases, in order; any failure exits non-zero:
      per rank; the model peers' replicated tensors hash equal after
      them), and the 128 x 1024 step's peak memory per rank beside one
      process;
+  6g. the JAX package's loss API: ``VGGishFeatureLoss`` (f32, 128x128,
+     seeded integer-valued and random trunks, B = 8 and 128) on each of
+     its three routes (value only: kernel E value-only; a gradient to
+     ``predicted``: E with grad; a gradient to ``target``: kernel D per
+     layer) against the same call with ``impl="plain"`` at phase 3's
+     bars (the integer trunk's calls with cuDNN off, whose f32
+     algorithms at B = 128 are not exact on integers), every call's E
+     and D launches asserted, each route timed at
+     B = 128 beside E's f32 bound; ``perceptual_loss`` (the extractor as
+     given, bit for bit; the cached default LPIPS on the card against
+     the CPU); ``gram_matrix``, ``mel_filterbank`` and
+     ``SinusoidalPositionEmbeddings`` card against CPU; the card's peak
+     figures from ``utils/chips.py``, which every bound here reads;
   7. times with CUDA events (host clock for the CLI, HTTP and training
      steps), each printed with the card's name and power limit: kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
@@ -228,9 +241,12 @@ TOL_EMBED = 1e-4
 DATA_CONTENT_S = 1798.5
 DATA_SILENCE_S = 0.75
 
-H100_BF16_FLOPS = 989e12   # dense, tensor cores
-H100_F32_FLOPS = 67e12     # outside the tensor cores
-H100_BYTES = 3.35e12       # HBM3
+# The card's dense bf16 tensor-core rate and HBM rate: read in ``main``
+# from utils/chips.py by the card's name (an unknown card fails the run).
+# The f32 rate outside the tensor cores (NVIDIA's H100 SXM datasheet) has
+# no column there.
+H100_BF16_FLOPS = H100_BYTES = None
+H100_F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -1385,6 +1401,245 @@ def model_parallel_phase(work: Path, spec: dict, one_dp: dict,
     return {"i": mp_i, "ii": mp_ii}, mp_launches
 
 
+# ---- phase 6g: the reference API --------------------------------------
+# VGGishFeatureLoss's three routes on the card (``resolve_impl``): the
+# kernel launches each call must make, by wrapper.  Value only: E's
+# value-only trunk (D's forward once per layer inside it); a gradient to
+# ``predicted``: E with its backward chain (D's backward per layer); a
+# gradient to ``target``: the ``layer`` route, D per layer.
+REFERENCE_API_LAUNCHES = {
+    "value": {"fused_trunk": 1, "normalized_mse_forward": 6,
+              "normalized_mse_backward": 0},
+    "pred_grad": {"fused_trunk": 1, "normalized_mse_forward": 6,
+                  "normalized_mse_backward": 6},
+    "target_grad": {"fused_trunk": 0, "normalized_mse_forward": 6,
+                    "normalized_mse_backward": 6},
+}
+# The layer route's target gradient vs plain: phase 7's bar for kernel
+# D's f32 target gradient, 1e-4 of its max (the trunk's maps are the
+# same cuDNN convs on both routes).
+TOL_TARGET_GRAD_OF_MAX = 1e-4
+REFERENCE_API_BATCHES = (8, 128)   # the last is also the timed one
+TOL_GRAM = 1e-5         # card vs CPU, f32 (TF32 off): sum order only
+# SinusoidalPositionEmbeddings card vs CPU at t = 0..199: CUDA's expf
+# rounds some of the 64 frequencies (each below 1) up to two ulps
+# (2 x 2^-24) away from the CPU's, which moves t * freq by up to
+# 199 * 2^-23, and each side rounds its product by up to half an ulp
+# (2^-17 at 128..199); sin and cos pass the difference on.
+TOL_SINUSOID = 199 * 2.0 ** -23 + 2.0 ** -16
+TOL_LPIPS_CARD = TOL_EMBED   # LPIPS card vs CPU: cuDNN vs CPU sum order
+
+
+def reference_api_phase(dev, card: str, trunks: dict, counts) -> tuple:
+    """Phase 6g, the JAX package's loss API on the card: (i)
+    ``VGGishFeatureLoss`` on kernels E and D against ``impl="plain"``,
+    each of its three routes at B = 8 and 128 on an integer-valued and a
+    random trunk (``trunks``: {name: VGGishFeatures state dict}), the
+    launches of every call asserted, then each route timed at B = 128
+    beside E's f32 bound; (ii) ``perceptual_loss``'s dispatch, and its
+    cached default LPIPS on the card against the CPU; (iii)
+    ``gram_matrix``, ``mel_filterbank`` and
+    ``SinusoidalPositionEmbeddings``, card against CPU; (iv) the card's
+    peak figures.  ``counts`` is (reset_counts, read_counts).
+    -> (results, launches summed over the checked kernel calls)."""
+    import torch
+
+    from music_style_transfer_ldm_tpu_torch.audio import (
+        mel_filterbank, mel,
+    )
+    from music_style_transfer_ldm_tpu_torch.losses import (
+        VGGishFeatureLoss, gram_matrix, perceptual_loss,
+    )
+    from music_style_transfer_ldm_tpu_torch.losses import basic
+    from music_style_transfer_ldm_tpu_torch.models import (
+        SinusoidalPositionEmbeddings,
+    )
+    from music_style_transfer_ldm_tpu_torch.ops import fused_trunk as ft
+    from music_style_transfer_ldm_tpu_torch.utils.chips import (
+        deterministic_convs, peak_flops_per_sec,
+    )
+    reset_counts, read_counts = counts
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    res: dict = {"err": {}, "ms": {}, "plain_ms": {}, "bound_ms": {}}
+    launches: dict = {}
+
+    def inputs(trunk, B):
+        if trunk == "integer":   # exact f32 maps: the routes pool alike
+            return [torch.randint(0, 4, (B, 128, 128, 1), device=dev,
+                                  generator=g).float() for _ in range(2)]
+        return [torch.rand(B, 128, 128, 1, device=dev, generator=g)
+                for _ in range(2)]
+
+    def exact_maps(trunk):
+        """The integer trunk's calls run with cuDNN off: its f32
+        algorithms at B = 128 are not exact on integers (phase 3), and an
+        inexact map breaks one of the many exact ties in the 2x2
+        max-pools, which routes a gradient to another pixel.  PyTorch's
+        own convs are cuBLAS GEMMs (TF32 off): exact sums, as kernel E's
+        CUDA-core convs are, so both routes see the same maps."""
+        if trunk != "integer":
+            return contextlib.nullcontext()
+        return torch.backends.cudnn.flags(enabled=False, allow_tf32=False)
+
+    def run(loss, route, p, t):
+        """One call on ``route``: (value, the gradient it asks for)."""
+        if route == "value":
+            with torch.no_grad():
+                return loss(p, t).item(), None
+        P = p.clone().requires_grad_(route == "pred_grad")
+        T = t.clone().requires_grad_(route == "target_grad")
+        v = loss(P, T)
+        v.backward()
+        return v.item(), (P.grad if route == "pred_grad" else T.grad)
+
+    # (i) VGGishFeatureLoss on the kernels against impl="plain"
+    losses = {}
+    for trunk, sd in trunks.items():
+        losses[trunk] = (VGGishFeatureLoss(params=sd, device=dev),
+                         VGGishFeatureLoss(params=sd, device=dev,
+                                           impl="plain"))
+        for B in REFERENCE_API_BATCHES:
+            p, t = inputs(trunk, B)
+            for route, want_n in REFERENCE_API_LAUNCHES.items():
+                kern, plain = losses[trunk]
+                reset_counts()
+                with exact_maps(trunk):
+                    vk, gk = run(kern, route, p, t)
+                n = read_counts()
+                for k, c in n.items():
+                    launches[k] = launches.get(k, 0) + c
+                check(n == {**{k: 0 for k in n}, **want_n},
+                      f"6g VGGishFeatureLoss {route} B={B}: launches {n}, "
+                      f"expected {want_n}")
+                reset_counts()
+                with exact_maps(trunk):
+                    vr, gr = run(plain, route, p, t)
+                check(not any(read_counts().values()),
+                      f"6g impl='plain' {route} launched a kernel")
+                err = {"value": abs(vk - vr) / vr}
+                ok = err["value"] <= TOL_E_VALUE
+                if gk is not None:
+                    err["of_max"] = ((gk - gr).abs().max()
+                                     / gr.abs().max()).item()
+                    err["rel_l2"] = ((gk - gr).norm() / gr.norm()).item()
+                    ok = ok and (
+                        err["of_max"] <= TOL_TARGET_GRAD_OF_MAX
+                        if route == "target_grad" else
+                        err["of_max"] <= TOL_E_GRAD_OF_MAX
+                        if trunk == "integer" else
+                        err["rel_l2"] <= TOL_E_REL_L2)
+                if trunk == "integer" and route == "pred_grad":
+                    # a reading, not a check: why exact_maps is needed
+                    _, g_cudnn = run(plain, route, p, t)
+                    err["plain_on_cudnn_of_max"] = (
+                        (g_cudnn - gr).abs().max() / gr.abs().max()).item()
+                res["err"][f"{trunk} {route} B={B}"] = err
+                print(f"6g VGGishFeatureLoss {trunk} trunk {route} B={B} "
+                      f"f32 128x128 vs impl='plain' on the card: "
+                      f"{ {k: float(f'{v:.3g}') for k, v in err.items()} } "
+                      f"(tol value {TOL_E_VALUE}; pred grad "
+                      f"{TOL_E_GRAD_OF_MAX} of max on the integer trunk, "
+                      f"rel L2 {TOL_E_REL_L2} on the random one; target "
+                      f"grad {TOL_TARGET_GRAD_OF_MAX} of max); launches "
+                      f"{ {k: v for k, v in n.items() if v} }")
+                check(ok, f"6g VGGishFeatureLoss {trunk} {route} B={B} "
+                          f"disagrees with impl='plain': {err}")
+            del p, t
+    # each route timed at B = 128 on the random trunk, beside E's f32
+    # bound: its work at the f32 rate outside the tensor cores or its
+    # bytes at the HBM rate
+    kern, plain = losses["random"]
+    B = REFERENCE_API_BATCHES[-1]
+    p, t = inputs("random", B)
+    P, T = p.clone().requires_grad_(True), t.clone().requires_grad_(True)
+
+    def timed(loss, route):
+        if route == "value":
+            def fn():
+                with torch.no_grad():
+                    loss(p, t)
+        elif route == "pred_grad":
+            def fn():
+                loss(P, t).backward()
+        else:
+            def fn():
+                loss(p, T).backward()
+        return fn
+
+    for route in REFERENCE_API_LAUNCHES:
+        cost = ft.trunk_cost(kern.module, B, 128, 128, 4, route != "value")
+        res["bound_ms"][route] = 1e3 * max(cost["flops"] / H100_F32_FLOPS,
+                                           cost["bytes"] / H100_BYTES)
+        res["ms"][route] = cuda_ms(timed(kern, route), 3)
+        res["plain_ms"][route] = cuda_ms(timed(plain, route), 2)
+        via = "D per layer" if route == "target_grad" else "E"
+        print(f"time {card} VGGishFeatureLoss {route} B={B} f32 128x128 "
+              f"(auto: {via}): {res['ms'][route]:.3f} ms/call, "
+              f"impl='plain' {res['plain_ms'][route]:.3f} ms; E's f32 "
+              f"bound {res['bound_ms'][route]:.4f} ms ("
+              f"{cost['flops'] / 1e12:.3f} TFLOP at "
+              f"{H100_F32_FLOPS / 1e12:g} TFLOP/s)")
+    del p, t, P, T
+
+    # (ii) perceptual_loss: the extractor as given, and the cached default
+    x, y = (torch.rand(8, 128, 128, 1, device=dev, generator=g)
+            for _ in range(2))
+    with deterministic_convs():
+        dispatched = perceptual_loss(x, y, "vggish", kern).item()
+        direct = kern(x, y).item()
+    check(dispatched == direct, f"6g perceptual_loss(vggish) {dispatched} "
+                                f"!= the extractor's {direct}")
+    try:
+        perceptual_loss(x, y, "vggish")
+        fail("6g perceptual_loss(vggish) without an extractor did not raise")
+    except ValueError:
+        pass
+    on_card = perceptual_loss(x, y, "lpips").item()
+    cached = basic._DEFAULT_LPIPS[x.device]
+    again = perceptual_loss(x, y, "lpips").item()
+    check(basic._DEFAULT_LPIPS[x.device] is cached,
+          "6g perceptual_loss built a second default LPIPS on the card")
+    on_cpu = perceptual_loss(x.cpu(), y.cpu(), "lpips").item()
+    cpu_sd = basic._DEFAULT_LPIPS[torch.device("cpu")].module.state_dict()
+    same = all(torch.equal(v.cpu(), cpu_sd[k])
+               for k, v in cached.module.state_dict().items())
+    res["err"]["lpips_card_vs_cpu"] = abs(on_card - on_cpu) / on_cpu
+    print(f"6g perceptual_loss: vggish via the dispatcher {dispatched!r} "
+          f"== the extractor's {direct!r}; lpips B=8 on the card {on_card:.8g} "
+          f"(again {again:.8g}, the cached module reused), on the CPU "
+          f"{on_cpu:.8g} with the same seed-0 weights ({same}): rel "
+          f"{res['err']['lpips_card_vs_cpu']:.3g} (tol {TOL_LPIPS_CARD})")
+    check(same and res["err"]["lpips_card_vs_cpu"] <= TOL_LPIPS_CARD,
+          "6g perceptual_loss(lpips) on the card disagrees with the CPU")
+
+    # (iii) small checks, card against CPU
+    f = torch.randn(8, 16, 16, 64, device=dev, generator=g)
+    gc, gh = gram_matrix(f), gram_matrix(f.cpu())
+    res["err"]["gram"] = ((gc.cpu() - gh).abs().max()
+                          / gh.abs().max()).item()
+    fb = mel_filterbank(device=dev)
+    fb_same = torch.equal(fb.cpu(), torch.from_numpy(
+        mel.mel_filterbank_np()))
+    steps = torch.arange(200, device=dev)
+    emb = SinusoidalPositionEmbeddings().to(dev)
+    res["err"]["sinusoid"] = (emb(steps).cpu()
+                              - emb.cpu()(steps.cpu())).abs().max().item()
+    peak = peak_flops_per_sec(torch.cuda.get_device_name())
+    print(f"6g gram_matrix [8,16,16,64] card vs CPU: max abs / max "
+          f"{res['err']['gram']:.3g} (tol {TOL_GRAM}); mel_filterbank on "
+          f"the card bit-equal to mel_filterbank_np: {fb_same}; "
+          f"SinusoidalPositionEmbeddings t = 0..199: max abs "
+          f"{res['err']['sinusoid']:.3g} (tol {TOL_SINUSOID}); "
+          f"peak_flops_per_sec({torch.cuda.get_device_name()!r}) = {peak}")
+    check(res["err"]["gram"] <= TOL_GRAM, "6g gram_matrix disagrees")
+    check(fb_same, "6g mel_filterbank on the card differs from the table")
+    check(res["err"]["sinusoid"] <= TOL_SINUSOID,
+          "6g SinusoidalPositionEmbeddings disagrees")
+    check(peak is not None, "6g utils/chips.py does not know this card")
+    return res, launches
+
+
 def dp_worker(args) -> int:
     """A rank of phase 6e or 6f: started by the phase, never by hand."""
     import torch
@@ -1561,12 +1816,20 @@ def main() -> int:
     from music_style_transfer_ldm_tpu_torch.utils.png import (
         read_png_gray, write_png_gray,
     )
+    from music_style_transfer_ldm_tpu_torch.utils.chips import (
+        hbm_bytes_per_sec, peak_flops_per_sec,
+    )
     from music_style_transfer_ldm_tpu_torch.utils.profiling import (
         StepTimer, debug_mode,
     )
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    global H100_BF16_FLOPS, H100_BYTES
+    H100_BF16_FLOPS, H100_BYTES = peak_flops_per_sec(kind), \
+        hbm_bytes_per_sec(kind)
+    check(H100_BF16_FLOPS is not None and H100_BYTES is not None,
+          f"utils/chips.py has no peak figures for {kind!r}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2815,7 +3078,7 @@ def main() -> int:
           f"{c64['plain_ms'] * 1e3:.1f} us; bound "
           f"{c64['bound_ms'] * 1e3:.3f} us ({c64['bound_by']}; "
           f"band-limited {band64['flops'] / 1e6:.2f} MFLOP, "
-          f"{band64['bytes'] / 1e6:.3f} MB at 3.35 TB/s)")
+          f"{band64['bytes'] / 1e6:.3f} MB at {H100_BYTES / 1e12:g} TB/s)")
     del chunks0, S64
 
     # the pack, the pairings
@@ -3278,6 +3541,13 @@ def main() -> int:
     results["model_parallel"], results["launches"]["model_parallel_ranks"] = \
         model_parallel_phase(work, spec, one, card)
 
+    # ---- 6g. the reference API -------------------------------------------
+    laps.start("6g")
+    results["reference_api"], results["launches"]["reference_api"] = \
+        reference_api_phase(dev, card, {"integer": ivgg.state_dict(),
+                                        "random": vgg32.state_dict()},
+                            (reset_counts, read_counts))
+
     # ---- 7. times -------------------------------------------------------
     laps.start("7")
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
@@ -3537,7 +3807,7 @@ def main() -> int:
                   f"B={B} bf16 128x128: {times['kernel_e_ms'][key]:.3f} "
                   f"ms/call, plain version {times['plain_e_ms'][key]:.3f} "
                   f"ms, bound {times['bound_e_ms'][key]:.4f} ms (operations: "
-                  f"{cost['flops'] / 1e12:.3f} TFLOP at 989 TFLOP/s)")
+                  f"{cost['flops'] / 1e12:.3f} TFLOP at {H100_BF16_FLOPS / 1e12:g} TFLOP/s)")
         del f1
     # E's yardstick: the trunk's five convs as cuDNN bf16 calls (phase 3)
     e_library_ms = sum(r["cudnn_fwd_ms"] for r in convs.values())
@@ -3565,7 +3835,7 @@ def main() -> int:
           f"distance): {r['ms']:.3f} ms/call, plain version "
           f"{r['plain_ms']:.3f} ms, the whole value call (conv1, E, D) "
           f"{r['distance_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
-          f"(operations: {cost['flops'] / 1e12:.4f} TFLOP at 67 TFLOP/s)")
+          f"(operations: {cost['flops'] / 1e12:.4f} TFLOP at {H100_F32_FLOPS / 1e12:g} TFLOP/s)")
     del f1e
     # the training step at B=128, bf16, defaults
     trainer_t = LDMTrainer(default_config())
@@ -3753,7 +4023,7 @@ def main() -> int:
           f"compression; {d_per_step} launches per step): forward "
           f"{d32['fwd_ms']:.3f} ms, plain {d32['plain_fwd_ms']:.3f}, bound "
           f"{d32['bound_fwd_ms']:.4f} ms (bytes: {fwd_bytes / 1e9:.3f} GB at "
-          f"3.35 TB/s); backward to the target {d32['bwd_ms']:.3f} ms, "
+          f"{H100_BYTES / 1e12:g} TB/s); backward to the target {d32['bwd_ms']:.3f} ms, "
           f"plain {d32['plain_bwd_ms']:.3f}, bound {d32['bound_bwd_ms']:.4f} "
           f"ms (bytes: {bwd_bytes / 1e9:.3f} GB)")
     times["kernel_d_f32"] = d32
@@ -3812,7 +4082,10 @@ def main() -> int:
          "bound_by": "operations", "library_ms": e_library_ms,
          "value_b64_per_rank": {"ms": times["kernel_e_ms"]["value_b64"],
                                 "plain_ms": times["plain_e_ms"]["value_b64"],
-                                "bound_ms": times["bound_e_ms"]["value_b64"]}},
+                                "bound_ms": times["bound_e_ms"]["value_b64"]},
+         "reference_api_f32_b128": {
+             k: results["reference_api"][k] for k in ("ms", "plain_ms",
+                                                      "bound_ms")}},
     ]
     by_path = {"normalized_mse": ("normalized_mse_forward",
                                   "normalized_mse_backward"),

@@ -10,3 +10,7 @@ layout.  Entry points run on the GPU unless the caller passes
 training ``ops/normalized_mse.py`` and ``ops/fused_trunk.py``.
 The user's entry points are ``cli.py`` and ``serving/server.py``.
 """
+
+from music_style_transfer_ldm_tpu_torch.config import Config, default_config  # noqa: F401
+
+__version__ = "0.1.0"

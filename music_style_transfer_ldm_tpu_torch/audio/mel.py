@@ -1,10 +1,11 @@
-"""Slaney-style mel filterbank and dB conversions, librosa-compatible.
+"""Mel filterbank and dB conversions, librosa-compatible.
 
-The filterbank is built once in numpy (Slaney mel scale, Slaney area
-normalisation, fmin 0, fmax sr/2); this module keeps its own copy of the
-construction.  The dB math is batched PyTorch with librosa's defaults
-(``amin=1e-10``, ``top_db=80``) and the data-dependent ``ref=max`` taken
-per item.
+The filterbank is built once in numpy (librosa.filters.mel: the Slaney
+mel scale and Slaney area normalisation by default, the HTK scale and no
+normalisation on request; fmin 0, fmax sr/2); this module keeps its own
+copy of the construction.  The dB math is batched PyTorch with
+librosa's defaults (``amin=1e-10``, ``top_db=80``) and the
+data-dependent ``ref=max`` taken per item.
 """
 
 from __future__ import annotations
@@ -24,18 +25,23 @@ _MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
 _LOGSTEP = np.log(6.4) / 27.0   # ... logarithmic above
 
 
-def hz_to_mel(frequencies):
-    """Hz -> mel on the Slaney scale (librosa htk=False)."""
+def hz_to_mel(frequencies, htk: bool = False):
+    """Hz -> mel on the Slaney scale (librosa htk=False), or the HTK
+    scale."""
     f = np.asanyarray(frequencies, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + f / 700.0)
     return np.where(f >= _MIN_LOG_HZ,
                     _MIN_LOG_MEL + np.log(np.maximum(f, _MIN_LOG_HZ)
                                           / _MIN_LOG_HZ) / _LOGSTEP,
                     f / _F_SP)
 
 
-def mel_to_hz(mels):
+def mel_to_hz(mels, htk: bool = False):
     """Mel -> Hz (inverse of hz_to_mel)."""
     m = np.asanyarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
     return np.where(m >= _MIN_LOG_MEL,
                     _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL)),
                     _F_SP * m)
@@ -43,23 +49,36 @@ def mel_to_hz(mels):
 
 @functools.lru_cache(maxsize=16)
 def mel_filterbank_np(sr: int = 22050, n_fft: int = 2048, n_mels: int = 128,
-                      fmin: float = 0.0,
-                      fmax: float | None = None) -> np.ndarray:
-    """[n_mels, 1 + n_fft//2] Slaney-normalised triangular filterbank
-    (librosa.filters.mel defaults), float32.  Callers must not modify the
-    (cached) result."""
+                      fmin: float = 0.0, fmax: float | None = None,
+                      htk: bool = False,
+                      norm: str | None = "slaney") -> np.ndarray:
+    """[n_mels, 1 + n_fft//2] triangular filterbank (librosa.filters.mel),
+    float32; ``norm="slaney"`` scales each filter to unit area, None
+    leaves peaks of 1.  Callers must not modify the (cached) result."""
     if fmax is None:
         fmax = sr / 2.0
     fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
-    mel_f = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
-                                  n_mels + 2))
+    mel_f = mel_to_hz(np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk),
+                                  n_mels + 2), htk)
     fdiff = np.diff(mel_f)
     ramps = mel_f[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    enorm = 2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels])
-    return (weights * enorm[:, None]).astype(np.float32)
+    if norm == "slaney":
+        enorm = 2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels])
+        weights = weights * enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def mel_filterbank(sr: int = 22050, n_fft: int = 2048, n_mels: int = 128,
+                   fmin: float = 0.0, fmax: float | None = None,
+                   htk: bool = False, norm: str | None = "slaney",
+                   device=None) -> torch.Tensor:
+    """``mel_filterbank_np``'s table as a float32 tensor on ``device``."""
+    return torch.as_tensor(mel_filterbank_np(
+        int(sr), int(n_fft), int(n_mels), float(fmin), fmax, bool(htk),
+        norm), device=device)
 
 
 def db_to_power(S_db: torch.Tensor, ref: float = 1.0) -> torch.Tensor:

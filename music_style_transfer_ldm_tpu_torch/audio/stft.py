@@ -23,6 +23,13 @@ def _hann_np(win_length: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
 
 
+def hann_window(win_length: int, dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """Periodic Hann window, identical to scipy.signal.get_window('hann',
+    N)."""
+    return torch.as_tensor(_hann_np(win_length), dtype=dtype, device=device)
+
+
 def _padded_window_np(win_length: int, n_fft: int) -> np.ndarray:
     """Window centred in an n_fft-long buffer (librosa util.pad_center)."""
     if win_length > n_fft:
@@ -35,6 +42,23 @@ def _padded_window_np(win_length: int, n_fft: int) -> np.ndarray:
 def _window(win_length: int, n_fft: int, device) -> torch.Tensor:
     return torch.as_tensor(_padded_window_np(win_length, n_fft),
                            dtype=torch.float32, device=device)
+
+
+def num_frames(n_samples: int, n_fft: int, hop_length: int,
+               center: bool = True) -> int:
+    """Number of STFT frames librosa produces for n_samples."""
+    if center:
+        n_samples = n_samples + 2 * (n_fft // 2)
+    return 1 + (n_samples - n_fft) // hop_length
+
+
+def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int,
+                 center: bool = True) -> torch.Tensor:
+    """[..., T] -> [..., n_frames, n_fft] frames; with ``center`` the
+    signal is zero-padded by n_fft // 2 on both sides first."""
+    if center:
+        y = F.pad(y, (n_fft // 2, n_fft // 2))
+    return y.unfold(-1, n_fft, hop_length)
 
 
 def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,

@@ -892,6 +892,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from music_style_transfer_ldm_tpu_torch.utils.cache import (
+        enable_compilation_cache,
+    )
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

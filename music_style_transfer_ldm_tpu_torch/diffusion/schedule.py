@@ -7,6 +7,8 @@ the model's device for the batched gathers.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 
@@ -19,14 +21,25 @@ def linear_beta_schedule(num_timesteps: int = 200, beta_start: float = 1e-4,
 
 
 class DiffusionSchedule:
-    """Precomputed schedule tables (host numpy + device tensors)."""
+    """Precomputed schedule tables ``betas``, ``alphas`` = 1 - betas and
+    their cumulative product ``alpha_bars`` (host numpy + device
+    tensors)."""
 
     def __init__(self, num_timesteps: int = 200, beta_start: float = 1e-4,
                  beta_end: float = 0.02, device="cpu"):
-        betas = linear_beta_schedule(num_timesteps, beta_start, beta_end)
-        self.alpha_bars_np = np.cumprod(np.float32(1.0) - betas,
-                                        dtype=np.float32)
-        self.alpha_bars = torch.as_tensor(self.alpha_bars_np, device=device)
+        self.betas_np = linear_beta_schedule(num_timesteps, beta_start,
+                                             beta_end)
+        self.alphas_np = np.float32(1.0) - self.betas_np
+        self.alpha_bars_np = np.cumprod(self.alphas_np, dtype=np.float32)
+        self.betas, self.alphas, self.alpha_bars = (
+            torch.as_tensor(a, device=device) for a in (
+                self.betas_np, self.alphas_np, self.alpha_bars_np))
+
+    @classmethod
+    def create(cls, num_timesteps: int = 200, beta_start: float = 1e-4,
+               beta_end: float = 0.02, device="cpu") -> "DiffusionSchedule":
+        """The JAX package's constructor."""
+        return cls(num_timesteps, beta_start, beta_end, device)
 
     @property
     def num_timesteps(self) -> int:
@@ -35,6 +48,16 @@ class DiffusionSchedule:
     def _gather(self, t: torch.Tensor, x_ndim: int) -> torch.Tensor:
         ab = self.alpha_bars.to(t.device)[t.long()]
         return ab.reshape(ab.shape + (1,) * (x_ndim - ab.ndim))
+
+    def q_sample(self, generator: Optional[torch.Generator],
+                 x0: torch.Tensor, t: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward process: (z_t, eps) with eps ~ N(0, 1) drawn from
+        ``generator`` (on x0's device; None draws from the global
+        generator), z_t = ``q_sample_with_noise(x0, t, eps)``."""
+        eps = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                          device=x0.device)
+        return self.q_sample_with_noise(x0, t, eps), eps
 
     def q_sample_with_noise(self, x0: torch.Tensor, t: torch.Tensor,
                             eps: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Scalar training losses: f32 results of tensors in any layout.
 
 The perceptual term takes its feature-distance callable explicitly
-(``feature_loss(a, b, weights)``).
+(``feature_loss(a, b, weights)``).  ``perceptual_loss`` and
+``gram_matrix`` are the reference's own loss API, kept for callers
+written against it.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from music_style_transfer_ldm_tpu_torch.utils.chips import exact_float32
 
 
 def weighted_batch_mean(per_elem: torch.Tensor,
@@ -65,3 +69,40 @@ def style_loss(reconstructed: torch.Tensor, style_spec: torch.Tensor,
                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Perceptual distance between the output and the style image."""
     return feature_loss(reconstructed, style_spec, weights)
+
+
+def perceptual_loss(original: torch.Tensor, reconstructed: torch.Tensor,
+                    feature_extractor_type: str = "vggish",
+                    feature_extractor: Optional[Callable] = None
+                    ) -> torch.Tensor:
+    """The reference's dispatcher: ``"vggish"`` requires an extractor,
+    called as ``feature_extractor(original, reconstructed)``; otherwise a
+    given extractor is called the same way, and with none an
+    ``LPIPSLoss(seed=0)`` is built once per device of ``original`` and
+    kept for later calls (the reference built one per call)."""
+    if feature_extractor_type == "vggish":
+        if feature_extractor is None:
+            raise ValueError("Feature extractor must be provided for VGGish")
+        return feature_extractor(original, reconstructed)
+    if feature_extractor is not None:
+        return feature_extractor(original, reconstructed)
+    from music_style_transfer_ldm_tpu_torch.losses.lpips import (
+        LPIPSLoss,   # imports this module
+    )
+    device = original.device
+    if device not in _DEFAULT_LPIPS:
+        _DEFAULT_LPIPS[device] = LPIPSLoss(device=device)
+    return _DEFAULT_LPIPS[device](original, reconstructed)
+
+
+# perceptual_loss's LPIPS metrics, one per device, each built on its own
+_DEFAULT_LPIPS: dict = {}
+
+
+def gram_matrix(features: torch.Tensor) -> torch.Tensor:
+    """The Gram matrix of NHWC features: [B, C, C] f32 divided by C*H*W
+    (autocast off)."""
+    B, H, W, C = features.shape
+    f = features.reshape(B, H * W, C).float()
+    with exact_float32(f.device):
+        return torch.bmm(f.transpose(1, 2), f) / (C * H * W)

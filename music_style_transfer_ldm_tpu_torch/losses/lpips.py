@@ -99,6 +99,28 @@ class LPIPS(nn.Module):
         return total
 
 
+class LPIPSLoss:
+    """A frozen ``LPIPS`` as a callable, ``(a, b, weights=None) -> scalar
+    f32``.  ``params`` is a state dict of ``LPIPS``
+    (``convert_torch_lpips_state_dict``), else a random init from
+    ``seed``; on ``device``, the card unless the caller asks for the CPU.
+    ``input_shape`` keeps the JAX signature and changes nothing (a torch
+    module needs no example input)."""
+
+    def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: int = 0, input_shape=(1, 128, 128, 1),
+                 device="cuda"):
+        from music_style_transfer_ldm_tpu_torch.losses.feature import (
+            build_feature_metric,   # imports this module
+        )
+        self.module = build_feature_metric("lpips", seed=seed, device=device,
+                                           params=params).module
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.module(a, b, weights)
+
+
 def convert_torch_lpips_state_dict(state_dict: Dict[str, torch.Tensor]
                                    ) -> Dict[str, torch.Tensor]:
     """A torch ``lpips.LPIPS(net='alex')`` state dict (``net.sliceK.i``

@@ -151,6 +151,35 @@ def vggish_feature_distance(module: VGGishFeatures, predicted: torch.Tensor,
     return total / len(fp)
 
 
+class VGGishFeatureLoss:
+    """The frozen VGGish distance as a callable, ``(predicted, target,
+    weights=None) -> scalar f32`` on NHWC [B, H, W, 1] images; gradients
+    reach the images, never the trunk.  ``params`` is a state dict of
+    ``VGGishFeatures`` (``convert_torchvggish_state_dict`` makes one from
+    torchvggish weights), else the trunk is a random init from ``seed``
+    (``losses/feature.py build_feature_metric``).  It lives on
+    ``device``, the card unless the caller asks for the CPU.
+    ``input_shape`` keeps the JAX signature, whose flax module is
+    initialised on an example input; a torch module needs none, so it
+    changes nothing.  ``impl`` is ``vggish_feature_distance``'s."""
+
+    def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: int = 0, input_shape=(1, 128, 128, 1),
+                 device="cuda", dtype: torch.dtype = torch.float32,
+                 impl: str = "auto"):
+        from music_style_transfer_ldm_tpu_torch.losses.feature import (
+            build_feature_metric,   # imports this module
+        )
+        metric = build_feature_metric("vggish", dtype, seed, device, impl,
+                                      params)
+        self.module, self.impl = metric.module, impl
+
+    def __call__(self, predicted: torch.Tensor, target: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return vggish_feature_distance(self.module, predicted, target,
+                                       weights, self.impl)
+
+
 def convert_torchvggish_state_dict(state_dict: Dict[str, torch.Tensor]
                                    ) -> Dict[str, torch.Tensor]:
     """torchvggish ``vggish.features`` weights (``features.<i>.weight``,

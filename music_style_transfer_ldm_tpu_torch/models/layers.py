@@ -184,6 +184,23 @@ def sinusoidal_embedding(time: torch.Tensor, dim: int = 128) -> torch.Tensor:
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+class SinusoidalPositionEmbeddings(nn.Module):
+    """``sinusoidal_embedding`` as a module: timesteps [B] -> [B, dim]."""
+
+    def __init__(self, dim: int = 128):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, time: torch.Tensor) -> torch.Tensor:
+        return sinusoidal_embedding(time, self.dim)
+
+
+def crop_k3_output(y: torch.Tensor) -> torch.Tensor:
+    """The JAX package's crop of an NHWC VALID k3-transpose output to the
+    p=1 / output_padding=1 geometry (``convT_k3`` computes it directly)."""
+    return y[:, 1:, 1:, :]
+
+
 class CrossAttention(nn.Module):
     """UNet features (queries) attend to style features (keys/values).
 

@@ -8,9 +8,9 @@ from music_style_transfer_ldm_tpu_torch.parallel.distributed import (  # noqa: F
     initialize, process_info, shutdown,
 )
 from music_style_transfer_ldm_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh, make_mesh,
+    Mesh, batch_sharding, make_mesh, replicated_sharding, sequence_sharding,
 )
 from music_style_transfer_ldm_tpu_torch.parallel.sharding import (  # noqa: F401
     batch_validity_weights, gather_params, global_batch_from_local,
-    pad_batch_to_multiple, shard_batch, shard_params,
+    pad_batch_to_multiple, param_partition_spec, shard_batch, shard_params,
 )

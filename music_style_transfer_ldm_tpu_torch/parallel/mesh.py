@@ -13,10 +13,12 @@ process, which is how the serving engine runs its replicas, or the one
 local card; a model axis > 1 needs a process group (one process per
 rank), so it raises there.
 
-A tensor carries no sharding in PyTorch, so the JAX package's
-``batch_sharding`` / ``replicated_sharding`` / ``sequence_sharding`` have
-no counterpart: ``parallel/sharding.py`` hands each rank its rows (and,
-under sequence parallelism, its width block) and its parameter blocks.
+A tensor carries no sharding in PyTorch: ``parallel/sharding.py`` hands
+each rank its rows (and, under sequence parallelism, its width block)
+and its parameter blocks.  ``batch_sharding``, ``replicated_sharding``
+and ``sequence_sharding`` keep the JAX package's names for the
+placements it makes: a tuple with an axis name or None per dimension of
+an NHWC batch (JAX's ``PartitionSpec``, as a tuple).
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+# The dims of an NHWC batch that ``sharding.shard_batch`` splits: rows
+# over the data axis, and under sequence parallelism the width (the
+# spectrogram's time) over the model axis (``sharding.width_block``, for
+# batches of 3 or more dims).
+BATCH_DIM, WIDTH_DIM = 0, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,3 +175,26 @@ def make_mesh(shape: Sequence[int] = (-1, 1),
         data_group, model_group = _axis_groups(n, m, index)
     return Mesh({DATA_AXIS: n, MODEL_AXIS: m}, devs, group, index,
                 data_group, model_group)
+
+
+def batch_sharding(mesh: Mesh, ndim: int = 4) -> tuple:
+    """``shard_batch``'s placement of an ``ndim``-dim batch: its rows over
+    the data axis, the rest whole."""
+    spec = [None] * ndim
+    spec[BATCH_DIM] = DATA_AXIS
+    return tuple(spec)
+
+
+def replicated_sharding(mesh: Mesh) -> tuple:
+    """A tensor whole on every device: no dim split."""
+    return ()
+
+
+def sequence_sharding(mesh: Mesh, ndim: int = 4) -> tuple:
+    """``shard_batch(..., sequence_parallel=True)``'s placement: the rows
+    over the data axis and, for 3 or more dims, the NHWC width over the
+    model axis."""
+    spec = list(batch_sharding(mesh, ndim))
+    if ndim > WIDTH_DIM:
+        spec[WIDTH_DIM] = MODEL_AXIS
+    return tuple(spec)

@@ -70,7 +70,9 @@ from torch import nn
 from music_style_transfer_ldm_tpu_torch.parallel.collectives import (
     count_collective, gather, model_axis,
 )
-from music_style_transfer_ldm_tpu_torch.parallel.mesh import make_mesh
+from music_style_transfer_ldm_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, WIDTH_DIM, make_mesh,
+)
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
 
 MIN_SHARD_WIDTH = 128   # narrower layers stay whole: collectives dominate
@@ -142,24 +144,25 @@ def _rows(x, n: int, pad: bool):
 
 
 def width_block(x, mesh, pad: bool = True):
-    """This rank's block of the NHWC width (dim 2) of an array of 3 or
-    more dims, the width zero-padded on the right up to a multiple of the
-    model axis first (``pad``); other arrays pass."""
+    """This rank's block of the NHWC width (``WIDTH_DIM``) of an array of
+    3 or more dims, the width zero-padded on the right up to a multiple
+    of the model axis first (``pad``); other arrays pass."""
     m = mesh.model_size
-    if x.ndim < 3 or m == 1:
+    if x.ndim <= WIDTH_DIM or m == 1:
         return x
-    rem = x.shape[2] % m
+    rem = x.shape[WIDTH_DIM] % m
     if rem:
         if not pad:
-            raise ValueError(f"width {x.shape[2]} does not split over a "
-                             f"model axis of {m}")
+            raise ValueError(f"width {x.shape[WIDTH_DIM]} does not split "
+                             f"over a model axis of {m}")
         widths = [(0, 0)] * x.ndim
-        widths[2] = (0, m - rem)
+        widths[WIDTH_DIM] = (0, m - rem)
         x = (np.pad(x, widths) if isinstance(x, np.ndarray) else
-             torch.nn.functional.pad(x, [0, 0] * (x.ndim - 3)
+             torch.nn.functional.pad(x, [0, 0] * (x.ndim - WIDTH_DIM - 1)
                                      + [0, m - rem]))
-    per = x.shape[2] // m
-    return x[:, :, mesh.model_index * per:(mesh.model_index + 1) * per]
+    per = x.shape[WIDTH_DIM] // m
+    i = mesh.model_index
+    return x[(slice(None),) * WIDTH_DIM + (slice(i * per, (i + 1) * per),)]
 
 
 def shard_batch(batch, mesh, pad: bool = True,
@@ -241,6 +244,29 @@ def split_dims(module: nn.Module) -> dict:
     return {f"{prefix}.{name}" if prefix else name: dim
             for prefix, mod in module.named_modules() if is_split(mod)
             for name, _, dim in _own_tensors(mod)}
+
+
+def param_partition_spec(name: str, tensor, mesh, module: nn.Module
+                         ) -> tuple:
+    """The placement of ``module``'s parameter or buffer ``name`` (a
+    qualified name in ``module``; ``tensor`` is its value) under
+    ``shard_params`` on ``mesh``: MODEL_AXIS on the split dim (torch's
+    layout: dim 0 of a conv or linear weight, dim 1 of a transpose
+    conv's), None on every other dim.  JAX keys its rule by the leaf's
+    path and shape; a torch tensor does not know its layer, so the root
+    module is the fourth argument."""
+    prefix, _, leaf = name.rpartition(".")
+    layer = module.get_submodule(prefix)
+    dim = param_partition(layer, mesh.model_size).get(leaf)
+    return tuple(MODEL_AXIS if d == dim else None
+                 for d in range(tensor.ndim))
+
+
+def param_sharding_tree(module: nn.Module, mesh) -> dict:
+    """{qualified name: ``param_partition_spec``} of every parameter and
+    buffer of ``module``."""
+    return {name: param_partition_spec(name, t, mesh, module)
+            for name, t in module.state_dict(keep_vars=True).items()}
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""Device selection, the fused-route bucket limit, exact float32,
-deterministic convolutions.
+"""Device selection, the card's published peak rates, the fused-route
+bucket limit, exact float32, deterministic convolutions.
 
 Entry points default to ``device="cuda"`` and raise when there is no
 card: there is no silent CPU path.  Tests pass ``device="cpu"``.
@@ -9,8 +9,45 @@ from __future__ import annotations
 
 import contextlib
 import os
+from typing import Optional
 
 import torch
+
+# Published dense peaks (no sparsity) from NVIDIA's H100 Tensor Core GPU
+# datasheet: bf16 tensor-core FLOP/s and HBM bytes/s.  Substring keys
+# matched against the card's name (``torch.cuda.get_device_name``),
+# lower-cased, most specific first; the SXM5 part reports itself as
+# "NVIDIA H100 80GB HBM3".  Published figures, not measurements.
+PEAK_BF16_FLOPS: tuple[tuple[str, float], ...] = (
+    ("h100 pcie", 756e12),
+    ("h100 nvl", 835e12),
+    ("h100", 989e12),
+)
+HBM_BYTES_PER_SEC: tuple[tuple[str, float], ...] = (
+    ("h100 pcie", 2.0e12),
+    ("h100 nvl", 3.9e12),
+    ("h100", 3.35e12),
+)
+
+
+def _lookup(table, device_kind) -> Optional[float]:
+    kind = str(device_kind or "").lower()
+    for key, value in table:
+        if key in kind:
+            return value
+    return None
+
+
+def peak_flops_per_sec(device_kind) -> Optional[float]:
+    """Peak dense bf16 FLOP/s of the card named ``device_kind``, or None
+    for an unknown device (the CPU)."""
+    return _lookup(PEAK_BF16_FLOPS, device_kind)
+
+
+def hbm_bytes_per_sec(device_kind) -> Optional[float]:
+    """HBM bytes/s of the card named ``device_kind``, or None for an
+    unknown device (the CPU)."""
+    return _lookup(HBM_BYTES_PER_SEC, device_kind)
 
 # Largest bucket routed to the fused trajectory kernel (override:
 # MSTLDM_FUSED_BUCKET_MAX).  Measured on an NVIDIA H100 80GB HBM3 at
