@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero:
      (D) and the VGGish trunk (E), all CUDA C++ for sm_90a, one nvcc per
      source, and the host compiler the spec-pack reader, all in parallel;
   3. every kernel against its plain PyTorch version at the main paths'
-     shapes, with the tolerances stated below (B with f32 and bf16 eps,
-     out of place and in place with its pred_x0 output; C on four
+     shapes, with the tolerances stated below (A at B = 1, 3, 4, 8; B
+     at B = 4, 8, 64 with f32 and bf16 eps, out of place and in place with its pred_x0 output; C on four
      spectrum sets, then on a filterbank with no zero entry and on one
      with all-zero rows); kernel D's six-column
      statistics and its run-to-run determinism; kernel E's five bf16
@@ -94,7 +94,8 @@ Phases, in order; any failure exits non-zero:
      clock, kernel time, idle share, bytes all-reduced, peak memory per
      rank); (iii) ``python -m torch.distributed.run --nproc-per-node 1
      -m ...cli train --model ldm`` on nccl (2 steps at B=128), and the
-     data-parallel machinery at world size 1 against the plain trainer;
+     data-parallel machinery at world size 1 (one rank started with
+     torchrun's environment, on nccl) against the plain trainer;
      (iv) the engine over two replicas on the one card against the
      single-replica scan engine (f32, cuDNN deterministic; images, and
      audio at the replicas' own batch), with kernel B and C launches and
@@ -146,7 +147,14 @@ Phases, in order; any failure exits non-zero:
      the evaluation block's wall time; kernel E f32 value-only at the
      evaluation batch beside its bound; and the distill step at B=128
      bf16, factor 2, unguided and guided (host clock, device time, idle
-     share, peak memory).
+     share, peak memory);
+  8. the benchmark, as a user runs it: ``python -m
+     music_style_transfer_ldm_tpu_torch.cli bench`` in a process of its
+     own with a time limit; its last JSON line holds every key of the
+     JAX package's headline set, each finite and positive, both MFUs in
+     (0, 1], ``value`` x 49 within 10 % of phase 7's kernel A B=1
+     trajectory, and its launch line shows kernels A, B, D and E
+     launched (``launches_by_path["bench"]``).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -160,6 +168,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import struct
@@ -247,6 +256,11 @@ DATA_SILENCE_S = 0.75
 # no column there.
 H100_BF16_FLOPS = H100_BYTES = None
 H100_F32_FLOPS = 67e12
+
+
+# Phase 8 runs ``cli bench`` in a process of its own for at most this
+# long (the bench is sized to take about 2 minutes on the H100).
+BENCH_TIMEOUT_S = 400
 
 
 def fail(msg: str) -> None:
@@ -710,8 +724,8 @@ def dp_loader(spec: dict, res: dict) -> None:
 
 
 def dp_world_size_1(spec: dict, res: dict) -> None:
-    """6e (iii), one rank under torch.distributed.run on nccl: the
-    data-parallel machinery at world size 1 (DistributedDataParallel,
+    """6e (iii), one rank in the environment torchrun gives it, on nccl:
+    the data-parallel machinery at world size 1 (DistributedDataParallel,
     BatchNorm's all_reduce) against the plain trainer, bf16 B=128."""
     import torch
     from music_style_transfer_ldm_tpu_torch.config import default_config
@@ -1889,26 +1903,34 @@ def main() -> int:
     ab = ldm32.schedule.alpha_bars_np
     x = torch.randn(8, 16, 16, 32, device=dev, generator=g)
     e = torch.randn(8, 16, 16, 32, device=dev, generator=g)
+    # the benchmark's batches too (phase 8): 4 (the 10 s clip) and 64;
+    # drawn from a generator of their own, so that the later phases'
+    # inputs stay as they were
+    g_b = torch.Generator(device=dev)
+    g_b.manual_seed(1)
+    x64 = torch.randn(64, 16, 16, 32, device=dev, generator=g_b)
+    e64 = torch.randn(64, 16, 16, 32, device=dev, generator=g_b)
     err_b = {}
-    for eps_type, ee in (("f32", e), ("bf16", e.bfloat16())):
-        for t, eta in ((49, 0.0), (49, 0.5), (1, 0.0)):
-            a_t, a_n = float(ab[t]), float(ab[t - 1])
-            k = fused_ddim_update(x, ee, a_t, a_n, eta)
-            r = ddim_update_reference(x, ee, a_t, a_n, eta)
-            sc = step_scalars(a_t, a_n, eta)
-            xi, x0 = x.clone(), torch.empty_like(x)
-            ddim_update_(xi, ee, sc, x0)
-            _, r0 = ddim_step_reference(x, ee, sc)
-            torch.cuda.synchronize()
-            for route, got, want in (("out of place", k, r),
-                                     ("in place", xi, r),
-                                     ("pred_x0", x0, r0)):
-                key = f"{eps_type} {route}"
-                err_b[key] = max(err_b.get(key, 0.0),
-                                 (got - want).abs().max().item())
-    print(f"kernel B vs plain [8,16,16,32] (eps f32 and bf16; t = 49, 1; "
-          f"eta 0, 0.5): max abs err {err_b} (expected 0; tol "
-          f"{TOL_KERNEL_B})")
+    for xb, eb in ((x[:4], e[:4]), (x, e), (x64, e64)):
+        for eps_type, ee in (("f32", eb), ("bf16", eb.bfloat16())):
+            for t, eta in ((49, 0.0), (49, 0.5), (1, 0.0)):
+                a_t, a_n = float(ab[t]), float(ab[t - 1])
+                k = fused_ddim_update(xb, ee, a_t, a_n, eta)
+                r = ddim_update_reference(xb, ee, a_t, a_n, eta)
+                sc = step_scalars(a_t, a_n, eta)
+                xi, x0 = xb.clone(), torch.empty_like(xb)
+                ddim_update_(xi, ee, sc, x0)
+                _, r0 = ddim_step_reference(xb, ee, sc)
+                torch.cuda.synchronize()
+                for route, got, want in (("out of place", k, r),
+                                         ("in place", xi, r),
+                                         ("pred_x0", x0, r0)):
+                    key = f"{eps_type} {route}"
+                    err_b[key] = max(err_b.get(key, 0.0),
+                                     (got - want).abs().max().item())
+    print(f"kernel B vs plain [B,16,16,32], B = 4, 8, 64 (eps f32 and "
+          f"bf16; t = 49, 1; eta 0, 0.5): max abs err {err_b} (expected 0; "
+          f"tol {TOL_KERNEL_B})")
     check(max(err_b.values()) <= TOL_KERNEL_B,
           "kernel B disagrees with its plain version")
     err_b = max(err_b.values())
@@ -1925,7 +1947,7 @@ def main() -> int:
         return ops, z_t.permute(0, 2, 3, 1).contiguous(), len(times) - 1
 
     err_a = 0.0
-    for B in (1, 3, 8):
+    for B in (1, 3, 4, 8):
         for sampler, eta, steps in (("ddim", 0.0, None), ("ddim", 0.5, None),
                                     ("dpm++", 0.0, 25)):
             ops, z_t, n = packed(ldm32, B, sampler, eta, steps)
@@ -1956,7 +1978,7 @@ def main() -> int:
 
     ldm = build_ldm(dtype=torch.bfloat16, device=dev, seed=0)
     err_a16 = 0.0
-    for B in (1, 8):
+    for B in (1, 4, 8):      # 1 and 4: the benchmark's (phase 8)
         ops16, z_t16, n16 = packed(ldm, B)
         k = fs.fused_ddim_sample(ops16, z_t16, n16)
         r = fs.reference_ddim_sample(ops16, z_t16, n16)
@@ -3425,10 +3447,17 @@ def main() -> int:
         "total_loss", "compression_loss", "denoising_loss", "style_loss")),
         "6e (iii): a non-finite loss")
     torch.save({}, pdir / "ws1.spec")
-    rc = run_group(torchrun + [
-        str(Path(__file__).resolve()), "--dp-worker", "ws1", "--spec",
-        str(pdir / "ws1.spec"), "--out", str(pdir / "ws1.out")], 900,
-        env=env)
+    # the rank itself with the environment torchrun gives a rank of one
+    # (parallel.initialize's env:// path on nccl): a second launch of
+    # torchrun's agent cost 15-18 s and drove nothing more.  MASTER_PORT
+    # 0: the rank's own store binds a port the system picks, so no other
+    # process can take it between a probe and the bind
+    rc = run_group([
+        sys.executable, str(Path(__file__).resolve()), "--dp-worker", "ws1",
+        "--spec", str(pdir / "ws1.spec"), "--out", str(pdir / "ws1.out")],
+        900, env={**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                  "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                  "MASTER_PORT": "0"})
     check(rc == 0, f"6e (iii): the world-size-1 rank returned {rc}")
     ws1 = torch.load(pdir / "ws1.out.0", weights_only=False)
     check(ws1["ws1"]["backend"] == "nccl", "6e (iii) is not on nccl")
@@ -4034,6 +4063,59 @@ def main() -> int:
                   "bound_b_ms": bound_b_ms, "kernel_b_out_of_place_ms":
                   kb_out_ms, "max_memory_mib": mem})
     results["times"] = times
+
+    # ---- 8. the benchmark ---------------------------------------------
+    laps.start("8")
+    from music_style_transfer_ldm_tpu_torch import benchmarks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "music_style_transfer_ldm_tpu_torch.cli",
+         "bench"], cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    tail = proc.stderr[-3000:]
+    check(proc.returncode == 0,
+          f"cli bench exited {proc.returncode}:\n{tail}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(lines, f"cli bench printed no JSON line:\n{tail}")
+    line = json.loads(lines[-1])
+    keys = benchmarks.HEADLINE_KEYS + benchmarks.Emitter._SECONDARY_KEYS
+    check(line.get("metric") == "ddim_step_ms" and line.get("unit") == "ms",
+          f"cli bench's headline is not ddim_step_ms: {line}")
+    bad = [k for k in keys if k not in ("metric", "unit") and not (
+        isinstance(line.get(k), (int, float)) and math.isfinite(line[k])
+        and line[k] > 0)]
+    check(not bad, f"cli bench's last line lacks or mis-states {bad}")
+    check(all(line[k] <= 1.0 for k in ("mfu_transfer_b64",
+                                       "mfu_train_b128")),
+          "an MFU above 1")
+    traj_ms = line["value"] * 49
+    check(abs(traj_ms - times["kernel_a_ms"][1])
+          <= 0.1 * times["kernel_a_ms"][1],
+          f"cli bench's value x 49 = {traj_ms:.3f} ms is not within 10 % "
+          f"of phase 7's kernel A trajectory, "
+          f"{times['kernel_a_ms'][1]:.3f} ms")
+    launch_lines = [ln for ln in proc.stderr.splitlines()
+                    if ln.startswith("kernel launches: ")]
+    check(launch_lines, "cli bench printed no launch line")
+    bench_launches = json.loads(launch_lines[-1][len("kernel launches: "):])
+    for names in (("fused_ddim_sample",), ("fused_ddim_update",),
+                  ("normalized_mse_forward", "normalized_mse_backward"),
+                  ("fused_trunk",)):
+        check(sum(bench_launches[n] for n in names) > 0,
+              f"cli bench never launched {names}")
+    results["launches"]["bench"] = bench_launches
+    results["bench"] = {"line": line, "wall_s": bench_s}
+    for ln in proc.stderr.splitlines():
+        if ln.startswith(("timed ", "kernel ", "scan ", "50-step", "dpm++",
+                          "10 s clip", "batch-", "serving", "bench done",
+                          "sync floor")):
+            print(f"bench: {ln}")
+    print(f"bench {card}: {json.dumps(line)}")
+    print(f"bench: cli bench took {bench_s:.1f} s (wall, its process); "
+          f"value x 49 = {traj_ms:.3f} ms against phase 7's "
+          f"{times['kernel_a_ms'][1]:.3f} ms; launches {bench_launches}")
 
     kernels = [
         {"name": "fused_ddim_sample", "route": "cuda",

@@ -21,6 +21,7 @@
       --checkpoint runs/ldm/ldm_final.pt --data-root images/ \\
       --pairing-file pairs.csv --out-dir runs/distill
   python -m music_style_transfer_ldm_tpu_torch.cli diagnose --checkpoint ckpt.pt
+  python -m music_style_transfer_ldm_tpu_torch.cli bench
   python -m torch.distributed.run --nproc-per-node N \\
       -m music_style_transfer_ldm_tpu_torch.cli train --model ldm ...
   python -m music_style_transfer_ldm_tpu_torch.cli serve --mesh-dp N ...
@@ -36,6 +37,8 @@ freezes; ``train --model ldm`` writes ``ldm_final.pt``, which
 reference's own ``.pth`` weights into these formats.  ``distill`` writes
 one ``distilled_<n>.pt`` per stage, an n-step student that ``transfer``
 and ``serve`` sample at ``--steps <t_max> --sample-steps <n + 1>``.
+``bench`` prints the headline numbers of the flagship model, random
+weights, as JSON lines (``benchmarks.py``).
 Everything runs on the card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels on the CPU instead (the tests use it).
 
@@ -675,6 +678,16 @@ def cmd_diagnose(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The headline benchmark (``benchmarks.py``): JSON lines on stdout;
+    a section that fails raises after the fields measured so far."""
+    from music_style_transfer_ldm_tpu_torch.benchmarks import (
+        main as bench_main,
+    )
+    bench_main(device=args.device)
+    return 0
+
+
 def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
@@ -888,6 +901,12 @@ def build_parser() -> argparse.ArgumentParser:
     dg.add_argument("--checkpoint", required=True)
     _common(dg)
     dg.set_defaults(fn=cmd_diagnose)
+
+    be = sub.add_parser("bench", help="run the headline benchmark")
+    be.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' times the plain PyTorch "
+                         "versions on the host clock")
+    be.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -1,5 +1,6 @@
 """Device selection, the card's published peak rates, the fused-route
-bucket limit, exact float32, deterministic convolutions.
+bucket limit, the benchmark's chain length, exact float32, deterministic
+convolutions.
 
 Entry points default to ``device="cuda"`` and raise when there is no
 card: there is no silent CPU path.  Tests pass ``device="cpu"``.
@@ -63,6 +64,24 @@ def fused_bucket_max() -> int:
     if env:
         return max(1, int(env))
     return _DEFAULT_FUSED_BUCKET_MAX
+
+
+def bench_chain_len(device_kind: Optional[str] = None,
+                    base: int = 32) -> int:
+    """Dependent-call chain length of ``benchmarks.py``'s device-time
+    windows: the number of 49-step B=1 trajectories of kernel A that one
+    pair of CUDA events brackets.
+
+    The window only has to be long against the few microseconds by which
+    a launch, and so an event, can land late.  On an NVIDIA H100 80GB
+    HBM3 at 700 W kernel A takes 4.43-4.47 ms a trajectory (chip_smoke.py
+    phase 7), so 32 trajectories make a window of about 142 ms.  The
+    length is ``base`` on every device: a trajectory's time is set by
+    its 735 grid barriers, not by the card's peak, so no peak ratio
+    predicts it on another card.  ``device_kind`` is taken for the JAX
+    package's signature and changes nothing."""
+    del device_kind
+    return base
 
 
 @contextlib.contextmanager
