@@ -101,7 +101,8 @@ Phases, in order; any failure exits non-zero:
      audio at the replicas' own batch), with kernel B and C launches and
      the latency of each bucket;
   6f. the model axis (``parallel/``, tensor and sequence parallelism):
-     (i) ranks of this script on the one card over gloo at (1, 2) and
+     (i) ranks of this script on the one card over gloo at (1, 2) (6e
+     (i)'s two ranks, on their process group after 6e's steps) and
      (2, 2): f32 tensor-parallel LDM, AE and distill steps on 6e (i)'s 7
      real rows (a pad row at two data indices) against 6e's one-process
      steps and, for the LDM and AE, against one process with the ranks'
@@ -154,7 +155,17 @@ Phases, in order; any failure exits non-zero:
      JAX package's headline set, each finite and positive, both MFUs in
      (0, 1], ``value`` x 49 within 10 % of phase 7's kernel A B=1
      trajectory, and its launch line shows kernels A, B, D and E
-     launched (``launches_by_path["bench"]``).
+     launched (``launches_by_path["bench"]``);
+  9. the tools, as a user runs them, each a process of its own, all at
+     once on the shared card: the serving load curve on the scan and the
+     fused route (25, 50, 100 clips/s, 3 s each; every request answered),
+     the B=64 roofline (``--chain 4``; every stage at most 1.05 of its
+     bound, kernel A's stage 8 launches at B=8), the three evaluations
+     on phase 6's checkpoint, phase 6c's 3-step student and phase 6d's
+     pack (4 pairs), the full-scale recipe at 30 s a voice and one
+     epoch a phase on the card-resident corpus, and the end-to-end demo;
+     their launch lines summed (``launches_by_path["tools"]``, A-E each
+     launched).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1222,13 +1233,47 @@ def mp_one(spec: dict, routes: dict) -> dict:
     return res
 
 
+def mp_spec(spec: dict, work: Path) -> None:
+    """Add 6f's inputs to 6e (i)'s ``spec``: the sequence-parallel rows
+    on 64 x 256, the 128 x 1024 forward's, and the cost's profile
+    directory."""
+    import numpy as np
+    mp_rng = np.random.RandomState(23)
+    spec.update(
+        sp_content=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
+        sp_style=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
+        sp_t=mp_rng.randint(0, 200, 7),
+        sp_noise=mp_rng.randn(7, 8, 32, 32).astype(np.float32),
+        wide=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
+        wide_style=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
+        wide_noise=mp_rng.randn(2, 16, 128, 32).astype(np.float32),
+        profile=str(work / "profile" / "model_parallel"))
+
+
+def dp_mp_steps(spec: dict, res: dict) -> None:
+    """6e (i)'s data-parallel steps, then, on the same two ranks and
+    process group, 6f (i)'s (1, 2) mesh (``mp_steps``, its cost
+    included) into ``res["mp_1x2"]``: one start of the ranks for both."""
+    counted = dp_counted()
+    dp_steps(spec, res)
+    res.setdefault("launches", {fn.__name__: fn.launches for fn in counted})
+    for fn in counted:
+        fn.launches = 0
+    mp = {"backend": res["backend"]}
+    mp_steps(dict(spec, shape=(1, 2)), mp)
+    res["mp_1x2"] = mp
+
+
 def model_parallel_phase(work: Path, spec: dict, one_dp: dict,
-                         card: str) -> tuple:
+                         card: str, ranks_1x2: list,
+                         seconds_1x2: float) -> tuple:
     """Phase 6f, the model axis: parity of tensor- and sequence-parallel
     ranks against one process (6e (i)'s weights and rows in ``spec``, its
     one-process steps in ``one_dp``; ``mp_one`` after the ranks, with
     their routes pinned for the tensor-parallel steps), then their cost
-    beside it.  -> (results, launches summed over the parity ranks)."""
+    beside it.  The (1, 2) ranks ran inside 6e (i)'s ranks
+    (``dp_mp_steps``: ``ranks_1x2``, in ``seconds_1x2`` with 6e (i)'s
+    steps).  -> (results, launches summed over the parity ranks)."""
     import numpy as np
     import torch
     # (i) parity, f32 (TF32 off, cuDNN deterministic): ranks of this
@@ -1240,24 +1285,12 @@ def model_parallel_phase(work: Path, spec: dict, one_dp: dict,
     # ``mp_one``)
     mdir = work / "model_parallel"
     shutil.rmtree(mdir, ignore_errors=True)
-    profile = work / "profile" / "model_parallel"
-    mp_rng = np.random.RandomState(23)
-    spec.update(
-        sp_content=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
-        sp_style=mp_rng.rand(7, 64, 256, 1).astype(np.float32),
-        sp_t=mp_rng.randint(0, 200, 7),
-        sp_noise=mp_rng.randn(7, 8, 32, 32).astype(np.float32),
-        wide=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
-        wide_style=mp_rng.rand(2, 128, 1024, 1).astype(np.float32),
-        wide_noise=mp_rng.randn(2, 16, 128, 32).astype(np.float32),
-        profile=str(profile))
-    meshes, seconds = {}, {}
-    for n_d, n_m in ((1, 2), (2, 2)):
-        tag = f"{n_d}x{n_m}"
-        t0 = time.perf_counter()
-        meshes[tag] = dp_spawn("mp_steps", n_d * n_m,
-                               dict(spec, shape=(n_d, n_m)), mdir / tag)
-        seconds[tag] = time.perf_counter() - t0
+    meshes = {"1x2": ranks_1x2}
+    seconds = {"1x2": seconds_1x2}
+    t0 = time.perf_counter()
+    meshes["2x2"] = dp_spawn("mp_steps", 4, dict(spec, shape=(2, 2)),
+                             mdir / "2x2")
+    seconds["2x2"] = time.perf_counter() - t0
     # one process, with each mesh's routes: (1, 2)'s rank 0's; (2, 2)'s
     # ranks 0 and 2 (data indices 0 and 1, 4 rows each) joined
     r22 = meshes["2x2"]
@@ -1654,6 +1687,178 @@ def reference_api_phase(dev, card: str, trunks: dict, counts) -> tuple:
     return res, launches
 
 
+# ---- phase 9: the repo's tools on the port, each a process of its own ----
+
+# (name, script, its arguments after the common ones) of phase 9; {w}
+# is the phase's directory, the rest as ``tools_phase`` names them.
+TOOL_RUNS = (
+    ("load_curve_dpm", "tools/torch_serving_load_curve.py",
+     ["--loads", "25,50,100", "--seconds", "3", "--autoscale", "off",
+      "--sampler", "dpm++", "--out", "{w}/load_curve_dpm.json"]),
+    ("load_curve_fused", "tools/torch_serving_load_curve.py",
+     ["--loads", "25,50,100", "--seconds", "3", "--autoscale", "off",
+      "--sampler", "fused-dpm++", "--out", "{w}/load_curve_fused.json"]),
+    ("roofline", "tools/torch_roofline_b64.py",
+     ["--chain", "4", "--out", "{w}/roofline.json"]),
+    ("eval_transfer", "tools/torch_eval_transfer.py",
+     ["--checkpoint", "{ckpt}", "--pack", "{spk}", "--pairings", "{pairs}",
+      "--n-pairs", "4", "--steps", "10", "--out-dir", "{w}/eval"]),
+    ("eval_generate", "tools/torch_eval_generate.py",
+     ["--checkpoint", "{ckpt}", "--pack", "{spk}", "--n", "4", "--steps",
+      "10", "--out", "{w}/eval/generate_eval.json"]),
+    ("eval_distill_fidelity", "tools/torch_eval_distill_fidelity.py",
+     ["--teacher", "{ckpt}", "--student", "{student}", "--steps", "100",
+      "--sample-steps", "4", "--pack", "{spk}", "--pairings", "{pairs}",
+      "--n-pairs", "4", "--out", "{w}/eval/distill_fidelity.json"]),
+    ("fullscale_run", "tools/torch_fullscale_run.py",
+     ["--workdir", "{w}/fullscale", "--seconds", "30", "--pairs", "256",
+      "--ae-epochs", "1", "--ldm-epochs", "1", "--device-resident"]),
+    ("end_to_end_demo", "examples/torch_end_to_end_demo.py",
+     ["--workdir", "{w}/demo", "--epochs", "1", "--steps", "2"]),
+)
+TOOLS_TIMEOUT_S = 400
+# The roofline's achieved rate may sit at most this far above its
+# stage's bound (CUDA-event timing against counted work).
+TOL_ROOFLINE = 1.05
+
+
+def tools_phase(work: Path, card: str, ckpt: Path, student: Path,
+                spk: Path, pairs: Path) -> dict:
+    """Phase 9: every tool of ``TOOL_RUNS`` as a user runs it, all at once
+    (the card shared; phase 9 checks what they produce, it does not time
+    them), each in a process of its own that must exit 0, on phase 6's
+    checkpoint, phase 6c's 3-step student and phase 6d's pack.  Their
+    records are checked, and each process's launch line (``kernel
+    launches:``) summed.  -> {tool: summary, "launches": summed}."""
+    import math
+    root = Path(__file__).resolve().parent
+    wdir = work / "tools"
+    shutil.rmtree(wdir, ignore_errors=True)
+    wdir.mkdir(parents=True)
+    fill = {"w": str(wdir), "ckpt": str(ckpt), "student": str(student),
+            "spk": str(spk), "pairs": str(pairs)}
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, script, argv in TOOL_RUNS:
+            log = open(wdir / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(root / script)]
+                + [a.format(**fill) for a in argv],
+                cwd=root, stdout=log, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True), log)
+        deadline = time.monotonic() + TOOLS_TIMEOUT_S
+        rcs, seconds = {}, {}
+        while len(rcs) < len(procs) and time.monotonic() < deadline:
+            for name, (proc, _) in procs.items():
+                if name not in rcs and proc.poll() is not None:
+                    rcs[name] = proc.returncode
+                    seconds[name] = round(time.perf_counter() - t0, 1)
+            time.sleep(0.2)
+        for name in procs:
+            rcs.setdefault(name, "timeout")
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    texts = {name: (wdir / f"{name}.log").read_text() for name in procs}
+    for name, rc in rcs.items():
+        check(rc == 0, f"9 {name} exited {rc}:\n{texts[name][-3000:]}")
+    launches: dict = {}
+    for name, text in texts.items():
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("kernel launches: ")]
+        check(lines, f"9 {name} printed no launch line")
+        for k, v in json.loads(lines[-1][len("kernel launches: "):]).items():
+            launches[k] = launches.get(k, 0) + v
+    out: dict = {"wall_s": round(wall, 1), "done_at_s": seconds}
+
+    # the load curves: every request answered, none failed
+    for name in ("load_curve_dpm", "load_curve_fused"):
+        rec = json.loads((wdir / f"{name}.json").read_text())
+        levels = [lv for run in rec["runs"] for lv in run["levels"]]
+        for lv in levels:
+            check(lv["errors"] == 0 and lv["completed"] == lv["sent"]
+                  and lv["sent"] > 0, f"9 {name}: a level lost requests: "
+                  f"{lv}")
+        out[name] = [{k: lv[k] for k in (
+            "offered_clips_per_s", "sent", "achieved_clips_per_s", "p50_ms",
+            "p99_ms")} for lv in levels]
+        print(f"tools {card} {name} (3 s a level, autoscale off, the card "
+              f"shared with phase 9's other tools): {out[name]}")
+
+    # the roofline: each stage at most its bound; kernel A's 8 launches
+    rec = json.loads((wdir / "roofline.json").read_text())
+    stages = rec["stages"]
+    for name, st in stages.items():
+        pct = st.get("pct_of_roofline")
+        check(pct is not None and math.isfinite(pct)
+              and 0.0 < pct <= TOL_ROOFLINE,
+              f"9 roofline {name}: pct_of_roofline {pct}")
+    fused = stages["fused_kernel_b64"]
+    check(fused["launches"] == 8 and fused["batch_per_launch"] == 8,
+          f"9 roofline: kernel A stage {fused}")
+    out["roofline"] = {name: {k: st[k] for k in (
+        "ms", "kernel_ms", "idle_share", "pct_of_roofline", "bound_by")}
+        for name, st in stages.items()}
+    print(f"tools {card} roofline B=64 --chain 4 (shared card): "
+          f"{out['roofline']}")
+
+    # the evaluations: finite metrics, the student on kernel A's route
+    ev = wdir / "eval"
+    tr = json.loads((ev / "transfer_eval.json").read_text())
+    gen = json.loads((ev / "generate_eval.json").read_text())
+    fid = json.loads((ev / "distill_fidelity.json").read_text())
+    for key, val in (
+            ("style_distance_reduction_pct",
+             tr["style_distance_reduction_pct"]),
+            ("fad_generated_vs_style_corpus",
+             gen["fad_generated_vs_style_corpus"]),
+            ("fad_real_vs_real_floor", gen["fad_real_vs_real_floor"]),
+            ("student mse", fid["student_distilled"]["mse_vs_teacher50"]),
+            ("teacher mse", fid["teacher_coarse"]["mse_vs_teacher50"])):
+        check(isinstance(val, (int, float)) and math.isfinite(val),
+              f"9 eval: {key} = {val}")
+    check((ev / "transfer_panel.png").stat().st_size > 1000,
+          "9 eval_transfer wrote no panel")
+    out["evals"] = {
+        "transfer": {k: tr[k] for k in (
+            "style_distance_reduction_pct", "pixel_mse_transfer_vs_content",
+            "vggish_multiseed_style_reduction_pct")},
+        "generate": {k: gen[k] for k in (
+            "fad_generated_vs_style_corpus", "fad_real_vs_real_floor",
+            "fad_other_class_ceiling")},
+        "fidelity": {k: fid[k] for k in ("teacher_coarse",
+                                         "student_distilled")}}
+    print(f"tools {card} evals (phase 6's checkpoint, 4 held-out pairs of "
+          f"phase 6d's pack): {out['evals']}")
+
+    # the full-scale recipe at toy depth, and the demo
+    meas = json.loads((wdir / "fullscale" / "results"
+                       / "pipeline_measurement.json").read_text())
+    check(meas["pipelined_steps"] > 0 and meas["synced_steps"] > 0
+          and meas["sustained_samples_per_s"] > 0,
+          f"9 fullscale_run: {meas}")
+    out["fullscale_run"] = meas
+    print(f"tools {card} fullscale_run (30 s a voice, 256 pairs, 1 + 1 "
+          f"epochs, card-resident; shared card): {meas}")
+    wav = wdir / "demo" / "out" / "transferred.wav"
+    check(wav.exists() and wav.stat().st_size > 10_000,
+          "9 end_to_end_demo wrote no WAV")
+    for fn in ("fused_ddim_sample", "fused_ddim_update",
+               "fused_mel_unit_image", "normalized_mse_forward",
+               "fused_trunk"):
+        check(launches.get(fn, 0) > 0, f"9: no tool launched {fn}")
+    out["launches"] = launches
+    print(f"tools: {len(TOOL_RUNS)} processes at once, {wall:.1f} s wall "
+          f"(each done at {seconds} s); launches {launches}")
+    return out
+
+
 def dp_worker(args) -> int:
     """A rank of phase 6e or 6f: started by the phase, never by hand."""
     import torch
@@ -1675,7 +1880,7 @@ def dp_worker(args) -> int:
         fn.launches = 0
     grouped = torch.distributed.is_initialized()
     res = {"backend": torch.distributed.get_backend() if grouped else None}
-    {"steps": dp_steps, "loader": dp_loader, "ws1": dp_world_size_1,
+    {"steps_mp": dp_mp_steps, "loader": dp_loader, "ws1": dp_world_size_1,
      "mp_steps": mp_steps}[args.dp_worker](spec, res)
     torch.cuda.synchronize()
     res.setdefault("launches", {fn.__name__: fn.launches for fn in counted})
@@ -1745,7 +1950,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the measurements here (JSON)")
     # phase 6e starts its ranks as this script with these
-    ap.add_argument("--dp-worker", choices=["steps", "loader", "ws1",
+    ap.add_argument("--dp-worker", choices=["steps_mp", "loader", "ws1",
                                             "mp_steps"],
                     help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
@@ -3288,9 +3493,12 @@ def main() -> int:
     ae_one = AETrainer(cfg32).init_state(0).model
     spec["ae"] = {k: v.cpu() for k, v in ae_one.state_dict().items()}
     del ldm_one, ae_one
+    # the same two ranks then run 6f (i)'s (1, 2) mesh (``dp_mp_steps``)
+    mp_spec(spec, work)
     t0 = time.perf_counter()
-    ranks = dp_spawn("steps", 2, spec, pdir)
+    ranks = dp_spawn("steps_mp", 2, spec, pdir)
     steps_s = time.perf_counter() - t0
+    ranks_1x2 = [r.pop("mp_1x2") for r in ranks]
     # the one-process steps on the 7 real rows
     torch.backends.cudnn.deterministic = True
 
@@ -3568,7 +3776,7 @@ def main() -> int:
     # ---- 6f. the model axis: tensor and sequence parallelism -----------
     laps.start("6f")
     results["model_parallel"], results["launches"]["model_parallel_ranks"] = \
-        model_parallel_phase(work, spec, one, card)
+        model_parallel_phase(work, spec, one, card, ranks_1x2, steps_s)
 
     # ---- 6g. the reference API -------------------------------------------
     laps.start("6g")
@@ -4116,6 +4324,12 @@ def main() -> int:
     print(f"bench: cli bench took {bench_s:.1f} s (wall, its process); "
           f"value x 49 = {traj_ms:.3f} ms against phase 7's "
           f"{times['kernel_a_ms'][1]:.3f} ms; launches {bench_launches}")
+
+    # ---- 9. the tools ----------------------------------------------------
+    laps.start("9")
+    results["tools"] = tools_phase(work, card, trained, d3, spk,
+                                   data_dir / "pairs.csv")
+    results["launches"]["tools"] = results["tools"].pop("launches")
 
     kernels = [
         {"name": "fused_ddim_sample", "route": "cuda",

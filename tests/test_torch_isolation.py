@@ -14,10 +14,29 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "music_style_transfer_ldm_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "music_style_transfer_ldm_tpu",
              "triton")
+# The port's tools and demos, by name (tools/torch_wide_near_ties.py and
+# tools/torch_ae_grad_spread.py compare against JAX on the CPU and stay
+# out), each with the least argv its parser takes.
+SCRIPTS = {
+    "tools/torch_common.py": None,
+    "tools/torch_serving_load_curve.py": [],
+    "tools/torch_roofline_b64.py": [],
+    "tools/torch_eval_transfer.py": ["--checkpoint", "c.pt", "--pack",
+                                     "p.spk", "--pairings", "p.csv"],
+    "tools/torch_eval_generate.py": ["--checkpoint", "c.pt", "--pack",
+                                     "p.spk"],
+    "tools/torch_eval_distill_fidelity.py": [
+        "--teacher", "t.pt", "--student", "s.pt", "--sample-steps", "2",
+        "--pack", "p.spk", "--pairings", "p.csv"],
+    "tools/torch_fullscale_run.py": [],
+    "examples/torch_end_to_end_demo.py": [],
+    "examples/torch_real_melody_demo.py": [],
+}
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / name for name in SCRIPTS])
     assert len(files) > 20
     return files
 
@@ -69,6 +88,21 @@ def test_entry_points_need_the_card_unless_asked():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
     assert build_ldm(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("script", [k for k, v in SCRIPTS.items()
+                                    if v is not None])
+def test_tools_need_the_card_unless_asked(script, tmp_path, monkeypatch):
+    """Each tool and demo refuses to start without a card unless given
+    --device cpu, before it reads or writes anything."""
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    module = importlib.import_module(script[:-3].replace("/", "."))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(SCRIPTS[script])
+    assert not any(tmp_path.iterdir())
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
