@@ -14,6 +14,7 @@ import torch
 from music_style_transfer_ldm_tpu_torch.audio import mel as _mel
 from music_style_transfer_ldm_tpu_torch.audio import nnls as _nnls
 from music_style_transfer_ldm_tpu_torch.audio import stft as _stft
+from music_style_transfer_ldm_tpu_torch.utils.profiling import span
 
 
 def griffin_lim(S: torch.Tensor, *, n_iter: int = 32, hop_length: int = 512,
@@ -80,9 +81,12 @@ def mel_to_audio(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
                  init_phase: torch.Tensor | None = None) -> torch.Tensor:
     """librosa.feature.inverse.mel_to_audio: [..., n_mels, T] mel power
     -> [..., n_samples] audio; ``seed`` seeds Griffin-Lim's random
-    phases."""
-    S = mel_to_stft(M, sr=sr, n_fft=n_fft, power=power,
-                    nnls_iters=nnls_iters)
-    return griffin_lim(S, n_iter=n_iter, hop_length=hop_length,
-                       win_length=win_length, n_fft=n_fft, length=length,
-                       seed=seed, init_phase=init_phase)
+    phases.  Traced as ``audio.nnls`` and ``audio.griffin_lim``, on the
+    device too."""
+    with span("audio.nnls", device=M.device):
+        S = mel_to_stft(M, sr=sr, n_fft=n_fft, power=power,
+                        nnls_iters=nnls_iters)
+    with span("audio.griffin_lim", device=M.device):
+        return griffin_lim(S, n_iter=n_iter, hop_length=hop_length,
+                           win_length=win_length, n_fft=n_fft,
+                           length=length, seed=seed, init_phase=init_phase)

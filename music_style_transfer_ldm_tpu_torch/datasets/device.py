@@ -25,6 +25,7 @@ from music_style_transfer_ldm_tpu_torch.datasets.packed import (
     PackedPairDataset,
 )
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
+from music_style_transfer_ldm_tpu_torch.utils.profiling import span
 
 
 class DeviceResidentPairs:
@@ -95,7 +96,8 @@ class DevicePairLoader(EpochBatches):
 
     def __iter__(self):
         for bidx in self._epoch_batches():
-            content, style = self.dataset.gather_pairs(bidx)
-            rows = [self.dataset.pairs[int(j)] for j in bidx]
+            with span("data.draw"):
+                content, style = self.dataset.gather_pairs(bidx)
+                rows = [self.dataset.pairs[int(j)] for j in bidx]
             yield ((content, [r[0] for r in rows]),
                    (style, [r[2] for r in rows]))

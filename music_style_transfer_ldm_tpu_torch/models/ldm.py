@@ -36,6 +36,7 @@ from music_style_transfer_ldm_tpu_torch.models.style_encoder import (
 from music_style_transfer_ldm_tpu_torch.models.unet import UNet
 from music_style_transfer_ldm_tpu_torch.parallel.collectives import gather
 from music_style_transfer_ldm_tpu_torch.utils.chips import resolve_device
+from music_style_transfer_ldm_tpu_torch.utils.profiling import span
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -265,15 +266,23 @@ def transfer_decoded(ldm: LDM, content: torch.Tensor, style: torch.Tensor,
                      noise: Optional[torch.Tensor] = None,
                      seeds=0, return_logs: bool = False):
     """The scan-sampler transfer; returns (decoded NHWC [0, 1], z_t), and
-    the sampler's NHWC logs third with ``return_logs``."""
-    z_t = ldm.noised_latents(content, num_timesteps, noise, seeds)
-    emb = ldm.style_encoder(_nchw(style.to(ldm.device)).to(ldm.dtype))
+    the sampler's NHWC logs third with ``return_logs``.  Traced as
+    ``ldm.encode``, ``ldm.style``, ``ldm.sample`` and ``ldm.decode``
+    (the last two on the device too)."""
+    dev = ldm.device
+    with span("ldm.encode"):
+        z_t = ldm.noised_latents(content, num_timesteps, noise, seeds)
+    with span("ldm.style"):
+        emb = ldm.style_encoder(_nchw(style.to(dev)).to(ldm.dtype))
     times = transfer_time_grid(num_timesteps, steps)
-    sampled = _run_sampler(sampler, ldm, emb, guidance, z_t, times, eta,
-                           return_logs)
+    with span("ldm.sample", device=dev):
+        sampled = _run_sampler(sampler, ldm, emb, guidance, z_t, times, eta,
+                               return_logs)
+    with span("ldm.decode", device=dev):
+        decoded = ldm.decode_unit(sampled if not return_logs else sampled[0])
     if not return_logs:
-        return ldm.decode_unit(sampled), z_t
-    return ldm.decode_unit(sampled[0]), z_t, _nhwc_logs(sampled[1])
+        return decoded, z_t
+    return decoded, z_t, _nhwc_logs(sampled[1])
 
 
 def content_style_transfer(ldm: LDM, content: torch.Tensor,

@@ -53,6 +53,7 @@ from music_style_transfer_ldm_tpu_torch.diffusion.schedule import (
 )
 from music_style_transfer_ldm_tpu_torch.models.ldm import seeded_noise
 from music_style_transfer_ldm_tpu_torch.ops._build import build_library
+from music_style_transfer_ldm_tpu_torch.utils.profiling import active, span
 
 _H = 16
 _LAT = 32
@@ -630,10 +631,13 @@ def _launch(ops: FusedOperands, z_t: torch.Tensor, n_steps: int):
     args.scratch_off = plan["scratch_off"]
     args.smem_bytes = plan["smem_bytes"]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):      # the C launch targets this device
-        err = lib.fused_ddim_sample(ctypes.byref(args),
-                                    _DTYPE_CODE[ops.dtype], plan["n_blocks"],
-                                    stream)
+    with span("kernel_a", device=dev, batch=B, n_steps=n_steps) as sp:
+        with torch.cuda.device(dev):      # the C launch targets this device
+            err = lib.fused_ddim_sample(ctypes.byref(args),
+                                        _DTYPE_CODE[ops.dtype],
+                                        plan["n_blocks"], stream)
+    if active() is not None:
+        sp.set(**trajectory_cost(ops, n_steps))
     if err != 0:
         raise RuntimeError(f"fused sampler: the cooperative launch of "
                            f"{plan['n_blocks']} blocks with "
@@ -725,15 +729,25 @@ def fused_content_style_transfer(ldm, content: torch.Tensor,
     Same trajectory as ``models.ldm.content_style_transfer``; content and
     style are NHWC [B, 128, 128, 1], one style per element.  ``noise``
     [B, 16, 16, 32] overrides the per-item generators seeded by ``seeds``.
-    Returns decoded images in [0, 1], NHWC f32."""
+    Returns decoded images in [0, 1], NHWC f32.  Traced as ``ldm.encode``,
+    ``ldm.style``, ``ldm.pack``, ``ldm.sample`` (around kernel A's call,
+    whose launch is ``kernel_a``) and ``ldm.decode``, the last two on the
+    device too."""
     if content.shape[0] > FUSED_MAX_BATCH:
         raise ValueError(f"fused sampler packs at most B={FUSED_MAX_BATCH}"
                          f"; got batch {content.shape[0]} — use the scan "
                          "samplers (models/ldm.py) for larger batches")
-    z_t = ldm.noised_latents(content, num_timesteps, noise, seeds)
-    emb = ldm.style_embed(style)
+    dev = ldm.device
+    with span("ldm.encode"):
+        z_t = ldm.noised_latents(content, num_timesteps, noise, seeds)
+    with span("ldm.style"):
+        emb = ldm.style_embed(style)
     times = transfer_time_grid(num_timesteps, steps)
-    ops = pack_operands(ldm.unet, emb, ldm.schedule, times, eta,
-                        sampler=sampler, batch=content.shape[0])
-    sampled = fused_ddim_sample(ops, z_t.permute(0, 2, 3, 1), len(times) - 1)
-    return ldm.decode_unit(sampled.permute(0, 3, 1, 2))
+    with span("ldm.pack"):
+        ops = pack_operands(ldm.unet, emb, ldm.schedule, times, eta,
+                            sampler=sampler, batch=content.shape[0])
+    with span("ldm.sample", device=dev):
+        sampled = fused_ddim_sample(ops, z_t.permute(0, 2, 3, 1),
+                                    len(times) - 1)
+    with span("ldm.decode", device=dev):
+        return ldm.decode_unit(sampled.permute(0, 3, 1, 2))

@@ -20,6 +20,11 @@
   synchronous behind a lock that it waits for at most ``timeout`` s; its
   calls and waiters show in ``stats()``, and waiters count as pending
   load.
+* ``stats()`` (served at ``/stats``) counts requests, dispatches (also by
+  bucket), rows, padded slots, and the requests taken from the queue
+  with the seconds they waited there; with a tracer on
+  (``utils/profiling.py``) each request's queue wait and each dispatch's
+  upload, read-back and reply are spans too.
 * With ``autoscale``, a 2x bucket is warmed on a side thread once the
   largest bucket keeps saturating while requests still queue.
 * With a ``mesh`` (``parallel/make_mesh`` over a list of devices; one
@@ -40,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -65,6 +71,9 @@ from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
 )
 from music_style_transfer_ldm_tpu_torch.utils.chips import (
     deterministic_convs, fused_bucket_max,
+)
+from music_style_transfer_ldm_tpu_torch.utils.profiling import (
+    record, span,
 )
 
 SAMPLERS = ("ddim", "dpm++", "fused", "fused-dpm++")
@@ -148,7 +157,10 @@ class InferenceEngine:
         self._queue: queue.Queue = queue.Queue()
         self._stats = {"requests": 0, "batches": 0, "padded_slots": 0,
                        "autoscaled_buckets": 0, "generate_calls": 0,
-                       "generate_waiting": 0}
+                       "generate_waiting": 0, "dispatches_by_bucket": {},
+                       "rows_dispatched": 0, "queue_waits": 0,
+                       "queue_wait_s_total": 0.0}
+        self._request_ids = itertools.count()
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
         self._warm_buckets: frozenset = frozenset()
@@ -286,7 +298,7 @@ class InferenceEngine:
                      for s in range(0, b, max_bucket)]
             return {k: np.concatenate([p[k] for p in parts])
                     for k in parts[0]}
-        bucket = min(k for k in warm if k >= b)
+        bucket = self._bucket(b)
         pad = bucket - b
         if pad:
             content = np.concatenate(
@@ -294,15 +306,26 @@ class InferenceEngine:
             style = np.concatenate(
                 [style, np.repeat(style[-1:], pad, axis=0)])
             seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
-        out = self._transfer(
-            torch.as_tensor(np.asarray(content, np.float32),
-                            device=self.device),
-            torch.as_tensor(np.asarray(style, np.float32),
-                            device=self.device), seeds)
+        with span("engine.upload"):
+            content = torch.as_tensor(np.asarray(content, np.float32),
+                                      device=self.device)
+            style = torch.as_tensor(np.asarray(style, np.float32),
+                                    device=self.device)
+        out = self._transfer(content, style, seeds)
+        with span("engine.readback"):
+            out = {k: v[:b].cpu().numpy() for k, v in out.items()}
         with self._stats_lock:
-            self._stats["padded_slots"] += pad
-            self._stats["batches"] += 1
-        return {k: v[:b].cpu().numpy() for k, v in out.items()}
+            st = self._stats
+            st["padded_slots"] += pad
+            st["batches"] += 1
+            st["dispatches_by_bucket"][bucket] = (
+                st["dispatches_by_bucket"].get(bucket, 0) + 1)
+            st["rows_dispatched"] += b
+        return out
+
+    def _bucket(self, rows: int) -> int:
+        """The smallest warm bucket that holds ``rows``."""
+        return min(k for k in self._warm_buckets if k >= rows)
 
     def generate(self, style: np.ndarray, seed: int = 0,
                  timeout: Optional[float] = None) -> dict:
@@ -354,7 +377,8 @@ class InferenceEngine:
         """Enqueue one request ([128, 128, 1] images); returns a queue
         that receives the {'image', 'audio'} dict (or an exception)."""
         done: queue.Queue = queue.Queue(maxsize=1)
-        self._queue.put((content, style, seed, done))
+        self._queue.put((content, style, seed, done, time.perf_counter(),
+                         next(self._request_ids)))
         with self._stats_lock:
             self._stats["requests"] += 1
         return done
@@ -390,12 +414,19 @@ class InferenceEngine:
 
         threading.Thread(target=work, daemon=True).start()
 
+    def _take(self, timeout: float):
+        """The next queued request; its wait ends here."""
+        item = self._queue.get(timeout=timeout)
+        now = time.perf_counter()
+        record("engine.queue_wait", item[4], now, trace_id=item[5])
+        return item, now - item[4]
+
     def _dispatch_loop(self) -> None:
         wait_s = self.config.max_wait_ms / 1000.0
         while not self._stop.is_set():
             max_b = max(self._warm_buckets)
             try:
-                first = self._queue.get(timeout=0.05)
+                first, waited = self._take(0.05)
             except queue.Empty:
                 continue
             batch = [first]
@@ -405,27 +436,36 @@ class InferenceEngine:
                 if remaining <= 0:
                     break
                 try:
-                    batch.append(self._queue.get(timeout=remaining))
+                    item, w = self._take(remaining)
                 except queue.Empty:
                     break
+                batch.append(item)
+                waited += w
+            with self._stats_lock:
+                self._stats["queue_waits"] += len(batch)
+                self._stats["queue_wait_s_total"] += waited
             self._maybe_autoscale(len(batch), max_b)
-            try:
-                content = np.stack([r[0] for r in batch])
-                style = np.stack([r[1] for r in batch])
-                seeds = np.asarray([r[2] for r in batch], np.int64)
-                out = self.transfer_batch(content, style, seeds=seeds)
-                for i, (_, _, _, done) in enumerate(batch):
-                    done.put({k: v[i] for k, v in out.items()})
-            except Exception as e:  # noqa: BLE001 — deliver, don't die
-                for _, _, _, done in batch:
-                    done.put(e)
+            bucket = self._bucket(len(batch))
+            with span("engine.batch", rows=len(batch), bucket=bucket,
+                      route="fused" if self.uses_fused(bucket) else "scan"):
+                try:
+                    content = np.stack([r[0] for r in batch])
+                    style = np.stack([r[1] for r in batch])
+                    seeds = np.asarray([r[2] for r in batch], np.int64)
+                    out = self.transfer_batch(content, style, seeds=seeds)
+                    with span("engine.reply"):
+                        for i, r in enumerate(batch):
+                            r[3].put({k: v[i] for k, v in out.items()})
+                except Exception as e:  # noqa: BLE001 — deliver, don't die
+                    for r in batch:
+                        r[3].put(e)
         # Fail anything still queued so no waiter hangs after stop().
         while True:
             try:
-                _, _, _, done = self._queue.get_nowait()
+                item = self._queue.get_nowait()
             except queue.Empty:
                 break
-            done.put(RuntimeError("engine stopped"))
+            item[3].put(RuntimeError("engine stopped"))
 
     def pending(self) -> int:
         """Requests queued but not yet dispatched, plus generate calls
@@ -435,4 +475,6 @@ class InferenceEngine:
     def stats(self) -> dict:
         with self._stats_lock:
             stats = dict(self._stats)
+            stats["dispatches_by_bucket"] = dict(
+                stats["dispatches_by_bucket"])
         return {**stats, "pending": self.pending()}

@@ -78,7 +78,9 @@ from music_style_transfer_ldm_tpu_torch.training.state import (
     TrainState, as_unit_images, ema_params_of, ema_update,
     prefetch_to_device,
 )
-from music_style_transfer_ldm_tpu_torch.utils.profiling import StallWatchdog
+from music_style_transfer_ldm_tpu_torch.utils.profiling import (
+    StallWatchdog, span,
+)
 
 _MASK64 = (1 << 64) - 1
 
@@ -279,22 +281,31 @@ class LDMTrainer:
         """One optimizer step on this rank's rows (``weights`` their
         validity, None when none is padded); t, noise and the style-drop
         mask are this rank's rows of ``draws`` unless given.  The metrics
-        are the global batch's, on the device."""
-        t, noise, style_drop_mask = self.draws(
-            state.step, content.shape[0], t, noise, style_drop_mask,
-            self.latent_shape(content))
+        are the global batch's, on the device.  Traced as ``train.draws``,
+        then ``train.forward``, ``train.backward`` and ``train.optimizer``
+        (sync, step, EMA), the last three on the device too."""
+        dev = self.device
+        with span("train.draws"):
+            t, noise, style_drop_mask = self.draws(
+                state.step, content.shape[0], t, noise, style_drop_mask,
+                self.latent_shape(content))
         state.optimizer.zero_grad(set_to_none=True)
         # weights by keyword only when given: one process without pad
         # rows calls _losses exactly as before
         kw = {} if weights is None else {"weights": weights}
-        total, metrics = self._losses(self.train_model(state.model), content,
-                                      style, t, noise, style_drop_mask, **kw)
-        total.backward()
-        sync_replicated(state.model, self.ax)
-        state.optimizer.step()
-        ema = state.ema_params
-        if ema is not None:
-            ema = ema_update(ema, state.model, self.ema_decay, state.step)
+        with span("train.forward", device=dev):
+            total, metrics = self._losses(self.train_model(state.model),
+                                          content, style, t, noise,
+                                          style_drop_mask, **kw)
+        with span("train.backward", device=dev):
+            total.backward()
+        with span("train.optimizer", device=dev):
+            sync_replicated(state.model, self.ax)
+            state.optimizer.step()
+            ema = state.ema_params
+            if ema is not None:
+                ema = ema_update(ema, state.model, self.ema_decay,
+                                 state.step)
         if self.mesh.distributed:
             vec = all_reduce_mean(torch.stack(
                 [metrics[k] for k in METRIC_KEYS]), self.mesh)

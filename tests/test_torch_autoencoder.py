@@ -654,12 +654,8 @@ def test_profiling_utilities(tmp_path):
     fired = []
     with profiling.StallWatchdog(timeout_s=0.05, context="test",
                                  on_stall=lambda: fired.append(1)) as wd:
-        deadline = 0
-        while not wd.fired and deadline < 200:
-            torch.ones(1)
-            deadline += 1
-            import time as _time
-            _time.sleep(0.01)
+        # fired turns true only after the warning and on_stall are done
+        wd.wait(timeout=60)
     assert wd.fired and fired == [1]
     with profiling.StallWatchdog(timeout_s=60) as quiet:
         pass
