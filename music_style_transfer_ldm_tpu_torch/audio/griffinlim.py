@@ -91,7 +91,9 @@ def _recover(S: torch.Tensor, phase: torch.Tensor, *, n_iter: int,
                        win_length=win_length, length=length)
 
 
-# The filterbank that mel_to_audio inverts: librosa's, from 0 Hz to sr / 2.
+
+# The default filterbank that mel_to_audio inverts: librosa's, from 0 Hz
+# to sr / 2.
 _FMIN, _FMAX = 0.0, None
 
 
@@ -112,13 +114,16 @@ def mel_to_stft(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
 
 def _graph_key(M: torch.Tensor, phase: torch.Tensor, *, sr: int,
                n_fft: int, hop_length: int, win_length: int, power: float,
-               n_iter: int, nnls_iters: int, length: int | None) -> tuple:
+               n_iter: int, nnls_iters: int, length: int | None,
+               mel: tuple = (_FMIN, _FMAX, False, "slaney")) -> tuple:
     """What a captured inversion depends on: the device, the shapes, every
-    parameter, the filterbank's band, the f32 matmul precision and
-    whether inference mode is on (its buffers take no copy outside it)."""
+    parameter, the filterbank's scale and norm and its band (``mel``:
+    fmin, fmax, htk, norm), the f32 matmul precision and whether
+    inference mode is on (its buffers take no copy outside it)."""
+    fmin, fmax, htk, norm = mel
     return (M.device, tuple(M.shape), tuple(phase.shape), int(sr),
             int(n_fft), int(hop_length), int(win_length), float(power),
-            int(n_iter), int(nnls_iters), length, _FMIN, _FMAX,
+            int(n_iter), int(nnls_iters), length, htk, norm, fmin, fmax,
             torch.get_float32_matmul_precision(),
             torch.is_inference_mode_enabled())
 
@@ -127,10 +132,14 @@ def mel_to_audio(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
                  hop_length: int = 512, win_length: int | None = None,
                  power: float = 2.0, n_iter: int = 32, nnls_iters: int = 64,
                  length: int | None = None, seed: int = 0,
-                 init_phase: torch.Tensor | None = None) -> torch.Tensor:
+                 init_phase: torch.Tensor | None = None, fmin: float = _FMIN,
+                 fmax: float | None = _FMAX, htk: bool = False,
+                 norm: str | None = "slaney") -> torch.Tensor:
     """librosa.feature.inverse.mel_to_audio: [..., n_mels, T] mel power
-    -> [..., n_samples] audio; ``seed`` seeds Griffin-Lim's random
-    phases.  Traced as ``audio.nnls`` and ``audio.griffin_lim``, on the
+    (magnitude at ``power`` 1) -> [..., n_samples] audio; ``seed`` seeds
+    Griffin-Lim's random phases.  The filterbank is librosa's with
+    (fmin, fmax, htk, norm); the default is the Slaney one from 0 Hz to
+    sr / 2.  Traced as ``audio.nnls`` and ``audio.griffin_lim``, on the
     device too.  On a card, from a shape's second call on, the two are
     graph replays (``audio/graphs.py``)."""
     win_length = win_length or n_fft
@@ -139,7 +148,9 @@ def mel_to_audio(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
         phase = _seeded_phase((1 + n_fft // 2, frames), int(seed), M.device)
     else:
         phase = init_phase.float()
-    fb = _mel.mel_filterbank_np(int(sr), int(n_fft), n_mels, _FMIN, _FMAX)
+    mel = (float(fmin), None if fmax is None else float(fmax), bool(htk),
+           norm)
+    fb = _mel.mel_filterbank_np(int(sr), int(n_fft), n_mels, *mel)
     magnitudes = functools.partial(_magnitudes, fb, power=power,
                                    nnls_iters=nnls_iters)
     recover = functools.partial(_recover, n_iter=n_iter,
@@ -154,7 +165,7 @@ def mel_to_audio(M: torch.Tensor, sr: int = 22050, n_fft: int = 2048,
 
     key = _graph_key(M, phase, sr=sr, n_fft=n_fft, hop_length=hop_length,
                      win_length=win_length, power=power, n_iter=n_iter,
-                     nnls_iters=nnls_iters, length=length)
+                     nnls_iters=nnls_iters, length=length, mel=mel)
     with _graphs.GRAPHS.route(key, M, phase, magnitudes, recover,
                               constants) as run:
         with span("audio.nnls", device=M.device):

@@ -39,6 +39,17 @@ one ``distilled_<n>.pt`` per stage, an n-step student that ``transfer``
 and ``serve`` sample at ``--steps <t_max> --sample-steps <n + 1>``.
 ``bench`` prints the headline numbers of the flagship model, random
 weights, as JSON lines (``benchmarks.py``).
+
+``transfer`` and ``serve`` take ``--model riffusion-v1`` (Riffusion v1,
+``models/riffusion.py``): 512x512 spectrograms at 44.1 kHz, SDEdit from
+``--steps`` (750 of its 1,000: strength 0.75) at ``--guidance`` (7.0)
+over ``--sample-steps`` (38) grid points; the defaults are
+``RiffusionConfig``'s.  Its prompt is token ids
+(``--prompt-ids 123,456``; ``prompt_ids`` in the JSON of ``/v1/transfer``
+and ``/v1/generate``): CLIP's BPE tokenizer needs its ``vocab.json`` and
+``merges.txt``, which are not in the repository.  ``--checkpoint`` is a
+``torch.save`` of {"text_encoder", "unet", "vae"} state dicts under
+diffusers' and transformers' names; without one the weights are seeded.
 Everything runs on the card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels on the CPU instead (the tests use it).
 
@@ -62,21 +73,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from music_style_transfer_ldm_tpu_torch.audio.io import write_wav
+from music_style_transfer_ldm_tpu_torch.audio.io import load_audio, write_wav
 from music_style_transfer_ldm_tpu_torch.audio.processor import (
     AudioProcessor, crossfade_stitch,
 )
+from music_style_transfer_ldm_tpu_torch.audio import riffusion as riff_audio
 from music_style_transfer_ldm_tpu_torch.audio.quantize import (
     unit_image_to_uint8,
 )
 from music_style_transfer_ldm_tpu_torch.audio.stft import stft_np
-from music_style_transfer_ldm_tpu_torch.config import default_config
+from music_style_transfer_ldm_tpu_torch.config import (
+    RiffusionConfig, default_config,
+)
 from music_style_transfer_ldm_tpu_torch.data.build_dataset import (
     build_dataset_df, build_dataset_folder_structure, chunk_audio,
 )
 from music_style_transfer_ldm_tpu_torch.data.downloader import AudioDownloader
 from music_style_transfer_ldm_tpu_torch.datasets.folder import (
     SpectrogramPairDataset, generate_pairings, load_image_unit,
+)
+from music_style_transfer_ldm_tpu_torch.models.clip_text import prompt_ids
+from music_style_transfer_ldm_tpu_torch.models.riffusion import (
+    load_riffusion, riffusion_transfer,
 )
 from music_style_transfer_ldm_tpu_torch.datasets.loader import (
     BatchLoader, prepare_dataset,
@@ -127,6 +145,30 @@ from music_style_transfer_ldm_tpu_torch.utils.png import write_png_gray
 # type raises there rather than being decoded as audio.
 _IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp")
 SAMPLERS = ["ddim", "dpm++", "fused", "fused-dpm++"]
+RIFFUSION = "riffusion-v1"
+MODELS = ["ldm", RIFFUSION]
+
+
+def _require(args, *names) -> None:
+    for name in names:
+        if getattr(args, name) is None:
+            raise SystemExit(f"--{name.replace('_', '-')} is required for "
+                             f"--model {args.model}")
+
+
+def parse_prompt_ids(text) -> list:
+    """'12,345 6' -> [12, 345, 6] (commas or spaces); None or '' -> the
+    empty prompt."""
+    return [int(t) for t in str(text or "").replace(",", " ").split()]
+
+
+def _load_riffusion(args, checkpoint):
+    dtype = (torch.float32 if torch.device(args.device).type == "cpu"
+             else torch.bfloat16)
+    if checkpoint is None:
+        print("note: no --checkpoint: Riffusion's weights are seeded",
+              file=sys.stderr)
+    return load_riffusion(checkpoint, dtype=dtype, device=args.device)
 
 
 def chunk_seeds(seed: int, n: int) -> np.ndarray:
@@ -274,6 +316,10 @@ def cmd_transfer(args) -> int:
     ``fused_bucket_max()``); each chunk's noise comes from (--seed, its
     index), so the result does not depend on the grouping.  The chunks'
     audio is stitched back into one WAV."""
+    if args.model == RIFFUSION:
+        return _transfer_riffusion(args, _load_riffusion(args,
+                                                         args.checkpoint))
+    _require(args, "checkpoint", "style")
     _, ldm, ap = _restore(args)
     _warn_distill_mismatch(args)
     _check_guidance(args)
@@ -332,6 +378,62 @@ def cmd_transfer(args) -> int:
     return 0
 
 
+def _riffusion_content(path: str, model, device) -> torch.Tensor:
+    """A PNG (cropped or padded to the model's size) or audio cut into
+    clip_seconds chunks (the last zero-padded) through Riffusion's front
+    end -> [n, S, S] unit images on ``device``."""
+    S, a = model.image_size, model.audio_config
+    if Path(path).suffix.lower() in _IMAGE_SUFFIXES:
+        return torch.as_tensor(load_image_unit(path, S)[None, ..., 0],
+                               device=device)
+    y, _ = load_audio(path, sr=a.sample_rate)
+    n = int(round(a.clip_seconds * a.sample_rate))
+    chunks = max(1, -(-len(y) // n))
+    y = np.pad(np.asarray(y, np.float32), (0, chunks * n - len(y)))
+    return riff_audio.waveform_to_unit_images(y.reshape(chunks, n), a, S,
+                                              device)
+
+
+def _transfer_riffusion(args, model) -> int:
+    """``cli transfer --model riffusion-v1``: content (audio or a
+    spectrogram image) restyled under ``--prompt-ids``; writes the
+    chunks' images side by side and their audio end to end."""
+    content = _riffusion_content(args.content, model, model.device)
+    n = content.shape[0]
+    ids = prompt_ids(parse_prompt_ids(args.prompt_ids), model.config.text)
+    decoded = riffusion_transfer(
+        model, content[..., None], model.condition(np.repeat(ids[None], n, 0)),
+        num_timesteps=args.steps,
+        steps=args.sample_steps or model.config.sample_steps,
+        guidance=args.guidance, seeds=chunk_seeds(args.seed, n))[..., 0]
+    audio = riff_audio.image_to_audio(decoded, model.audio_config)
+    out = Path(args.output)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    u8 = unit_image_to_uint8(decoded.cpu()).numpy()
+    out.with_suffix(".png").write_bytes(write_png_gray(
+        np.concatenate(list(u8), axis=1)))
+    write_wav(out.with_suffix(".wav"), riff_audio.peak_normalize(
+        audio.cpu().numpy().reshape(-1)), model.audio_config.sample_rate)
+    print(f"wrote {out.with_suffix('.png')} and {out.with_suffix('.wav')}")
+    return 0
+
+
+def _riffusion_engine(args):
+    """``serve --model riffusion-v1``'s engine (one card)."""
+    if args.mesh_dp != 1 or len(args.checkpoint or ()) > 1:
+        raise SystemExit("--model riffusion-v1 serves one model on one card")
+    model = _load_riffusion(args, (args.checkpoint or [None])[0])
+    ecfg = EngineConfig(
+        steps=args.steps,
+        sampler=args.sampler,
+        sample_steps=args.sample_steps or model.config.sample_steps,
+        guidance=args.guidance, generate_steps=args.generate_steps,
+        generate_guidance=args.generate_guidance,
+        batch_buckets=tuple(args.buckets), max_wait_ms=args.max_wait_ms,
+        autoscale=args.autoscale)
+    return InferenceEngine(model, ecfg)
+
+
 def _serve_engine_config(ecfg, args, path, name, num_timesteps: int = 200):
     """A distilled student serves on its trained grid unless the user
     pinned --sample-steps (then an off-grid choice warns)."""
@@ -381,8 +483,16 @@ def serving_mesh(args):
 
 def build_engines(args) -> dict:
     """{name: warmed InferenceEngine} for ``serve``'s --checkpoint entries
-    (a bare path, or name=path; the first is the default model).
-    Warming builds every kernel, before anything listens."""
+    (a bare path, or name=path; the first is the default model), or
+    Riffusion's one engine.  Warming builds every kernel, before anything
+    listens."""
+    if args.model == RIFFUSION:
+        engines = {"default": _riffusion_engine(args)}
+        print(f"warming {len(args.buckets)} batch buckets of "
+              f"{RIFFUSION}...", flush=True)
+        engines["default"].warmup()
+        return engines
+    _require(args, "checkpoint")
     cfg = default_config()
     ecfg = EngineConfig(steps=args.steps, sampler=args.sampler,
                         sample_steps=args.sample_steps,
@@ -697,8 +807,38 @@ def _common(p: argparse.ArgumentParser) -> None:
                         "checkpoint carries ema_params")
 
 
+class _Parser(argparse.ArgumentParser):
+    """Fills each option a command lists in its ``model_defaults``
+    ({dest: {model: value}}) that the command line left unset, by the
+    command's ``--model``."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        ns, rest = super().parse_known_args(args, namespace)
+        for dest, by_model in getattr(ns, "model_defaults", {}).items():
+            if getattr(ns, dest) is None:
+                setattr(ns, dest, by_model[ns.model])
+        return ns, rest
+
+
+def _model_args(p: argparse.ArgumentParser, steps: int,
+                generate: bool = False) -> None:
+    """``--model``, and the defaults it sets: ``--steps`` (``steps``
+    for the LDM), ``--guidance`` and, with ``generate``,
+    ``--generate-guidance`` (1 for the LDM); RiffusionConfig's for
+    riffusion-v1."""
+    p.add_argument("--model", choices=MODELS, default="ldm",
+                   help="the paper's LDM, or Riffusion v1 (512x512 "
+                        "spectrograms, text prompts as token ids)")
+    rc = RiffusionConfig()
+    defaults = {"steps": {"ldm": steps, RIFFUSION: rc.transfer_timesteps},
+                "guidance": {"ldm": 1.0, RIFFUSION: rc.guidance}}
+    if generate:
+        defaults["generate_guidance"] = defaults["guidance"]
+    p.set_defaults(model_defaults=defaults)
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="music_style_transfer_ldm_tpu_torch")
+    p = _Parser(prog="music_style_transfer_ldm_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
     gen = sub.add_parser("generate", help="style-conditioned generation")
@@ -719,10 +859,18 @@ def build_parser() -> argparse.ArgumentParser:
     gen.set_defaults(fn=cmd_generate)
 
     tr = sub.add_parser("transfer", help="content+style transfer")
-    tr.add_argument("--checkpoint", required=True)
+    _model_args(tr, steps=100)
+    tr.add_argument("--checkpoint", default=None,
+                    help="required for --model ldm; optional for "
+                         "riffusion-v1 (seeded weights without one)")
     tr.add_argument("--content", required=True)
-    tr.add_argument("--style", required=True)
-    tr.add_argument("--steps", type=int, default=100)
+    tr.add_argument("--style", default=None,
+                    help="style image or audio (--model ldm)")
+    tr.add_argument("--prompt-ids", default=None,
+                    help="riffusion-v1: the prompt's CLIP token ids, "
+                         "comma-separated (none: the empty prompt)")
+    tr.add_argument("--steps", type=int, default=None,
+                    help="noising depth (default 100; riffusion-v1: 750)")
     tr.add_argument("--eta", type=float, default=0.0)
     tr.add_argument("--sampler", choices=SAMPLERS, default="ddim",
                     help="'fused*' run the whole trajectory as one kernel "
@@ -732,11 +880,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="coarse sampler grid (< --steps noising depth); "
                          "pairs with --sampler dpm++/fused-dpm++")
     tr.add_argument("--seed", type=int, default=0)
-    tr.add_argument("--guidance", type=float, default=1.0,
+    tr.add_argument("--guidance", type=float, default=None,
                     help="classifier-free style-strength knob (0 = ignore "
-                         "style, 1 = plain conditional, > 1 = amplified "
-                         "style; needs a checkpoint trained with "
-                         "style_dropout > 0; scan samplers only)")
+                         "style, 1 = plain conditional, the default, > 1 = "
+                         "amplified style; needs a checkpoint trained with "
+                         "style_dropout > 0; scan samplers only); "
+                         "riffusion-v1: the prompt's, default 7")
     tr.add_argument("--overlap", type=float, default=0.0,
                     help="fraction in [0, 1): overlapping 3 s chunks with "
                          "crossfaded seams; 0 = disjoint chunks")
@@ -752,24 +901,29 @@ def build_parser() -> argparse.ArgumentParser:
     tr.set_defaults(fn=cmd_transfer)
 
     sv = sub.add_parser("serve", help="HTTP inference server (microbatched)")
-    sv.add_argument("--checkpoint", required=True, action="append",
+    _model_args(sv, steps=50, generate=True)
+    sv.add_argument("--checkpoint", default=None, action="append",
                     help="checkpoint path, or name=path (repeat for "
-                         "multi-model routing; the first is the default)")
+                         "multi-model routing; the first is the default); "
+                         "required for --model ldm, at most one for "
+                         "riffusion-v1")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8787)
-    sv.add_argument("--steps", type=int, default=50)
+    sv.add_argument("--steps", type=int, default=None,
+                    help="noising depth (default 50; riffusion-v1: 750)")
     sv.add_argument("--sampler", choices=SAMPLERS, default="ddim",
                     help="'fused*' run the trajectory kernel on buckets up "
                          "to fused_bucket_max()")
     sv.add_argument("--sample-steps", type=int, default=None,
                     help="coarse sampler grid (< --steps noising depth)")
-    sv.add_argument("--guidance", type=float, default=1.0,
+    sv.add_argument("--guidance", type=float, default=None,
                     help="classifier-free style-guidance scale (scan "
-                         "samplers only)")
+                         "samplers only; default 1, riffusion-v1: 7)")
     sv.add_argument("--generate-steps", type=int, default=None,
                     help="step grid of /v1/generate (default: --steps)")
-    sv.add_argument("--generate-guidance", type=float, default=1.0,
-                    help="guidance of /v1/generate")
+    sv.add_argument("--generate-guidance", type=float, default=None,
+                    help="guidance of /v1/generate (default 1, "
+                         "riffusion-v1: 7)")
     sv.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     sv.add_argument("--mesh-dp", type=int, default=1,
                     help="one model replica on each of the first N cards "

@@ -2,6 +2,10 @@
 
 The port keeps its own copy so it imports nothing of the JAX package.
 ``MeshConfig`` is the (data, model) layout of ``parallel/``.
+``RiffusionConfig`` is the second model family the port serves:
+Riffusion v1 (Stable Diffusion 1.5 fine-tuned on 512x512 mel
+spectrograms), its text encoder, UNet and VAE at their published sizes,
+and ``riffusion_audio_config`` its spectrogram geometry.
 """
 
 from __future__ import annotations
@@ -29,6 +33,26 @@ class AudioConfig:
     griffin_lim_iters: int = 32
     griffin_lim_momentum: float = 0.99
     nnls_iters: int = 64
+    # The inversion's filterbank and spectrum (the paper's: Slaney mel,
+    # power), and Riffusion's image law (audio/riffusion.py: magnitude
+    # mel / max, ** image_power, read back at ``max_value``).
+    mel_htk: bool = False
+    mel_norm: str | None = "slaney"
+    power: float = 2.0
+    image_power: float = 0.25
+    max_value: float = 30e6
+    clip_seconds: float = 3.0
+
+
+def riffusion_audio_config() -> AudioConfig:
+    """Riffusion's spectrogram (riffusion/spectrogram_params.py): 44.1
+    kHz, a 4,410-sample window inside a 17,640-point FFT, hop 441, 512
+    HTK mels from 0 to 10 kHz, unnormalised, magnitude; 512 frames of
+    5.12 s."""
+    return AudioConfig(sample_rate=44100, n_fft=17640, hop_length=441,
+                       win_length=4410, n_mels=512, fmin=0.0, fmax=10000.0,
+                       mel_htk=True, mel_norm=None,
+                       power=1.0, clip_seconds=5.12)
 
 
 @dataclasses.dataclass
@@ -108,6 +132,77 @@ class MeshConfig:
     model_axis: str = "model"
     mesh_shape: Tuple[int, int] = (-1, 1)
     sequence_parallel: bool = False
+
+
+@dataclasses.dataclass
+class TextEncoderConfig:
+    """CLIP ViT-L/14's text tower (text_encoder/config.json)."""
+
+    vocab_size: int = 49408
+    max_positions: int = 77
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    eps: float = 1e-5
+    bos_id: int = 49406
+    eos_id: int = 49407
+
+
+@dataclasses.dataclass
+class SDUNetConfig:
+    """UNet2DConditionModel as Riffusion v1 configures it
+    (unet/config.json)."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    # which down blocks carry transformers (CrossAttnDownBlock2D); the up
+    # path mirrors them
+    cross_attention: Tuple[bool, ...] = (True, True, True, False)
+    layers_per_block: int = 2
+    heads: int = 8
+    cross_attention_dim: int = 768
+    groups: int = 32
+    eps: float = 1e-5
+    transformer_eps: float = 1e-6
+    time_proj_dim: int = 320
+    time_embed_dim: int = 1280
+
+
+@dataclasses.dataclass
+class VAEConfig:
+    """AutoencoderKL (vae/config.json)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    latent_channels: int = 4
+    groups: int = 32
+    eps: float = 1e-6
+    scaling_factor: float = 0.18215
+
+
+@dataclasses.dataclass
+class RiffusionConfig:
+    """riffusion/riffusion-model-v1 and its SDEdit serving defaults:
+    ``scaled_linear`` betas over 1,000 steps, strength 0.75 (the content
+    latent noised to t = 749, ``transfer_timesteps`` 750), 38 grid points
+    (37 UNet calls) and guidance 7.0."""
+
+    text: TextEncoderConfig = dataclasses.field(
+        default_factory=TextEncoderConfig)
+    unet: SDUNetConfig = dataclasses.field(default_factory=SDUNetConfig)
+    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    image_size: int = 512
+    num_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    transfer_timesteps: int = 750
+    sample_steps: int = 38
+    guidance: float = 7.0
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""DDPM forward process: linear beta schedule, closed-form q-sampling.
+"""DDPM forward process: linear or ``scaled_linear`` beta schedule,
+closed-form q-sampling.
 
 The tables live twice: as float32 numpy arrays on the host, so the
 samplers read per-step scalars with no device sync, and as tensors on
@@ -20,14 +21,28 @@ def linear_beta_schedule(num_timesteps: int = 200, beta_start: float = 1e-4,
                        dtype=np.float64).astype(np.float32)
 
 
+def scaled_linear_beta_schedule(num_timesteps: int = 1000,
+                                beta_start: float = 0.00085,
+                                beta_end: float = 0.012) -> np.ndarray:
+    """Stable Diffusion's ``scaled_linear``: betas whose square roots
+    are linear from sqrt(beta_start) to sqrt(beta_end), float32."""
+    return (np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_timesteps,
+                        dtype=np.float64) ** 2).astype(np.float32)
+
+
+BETA_SCHEDULES = {"linear": linear_beta_schedule,
+                  "scaled_linear": scaled_linear_beta_schedule}
+
+
 class DiffusionSchedule:
     """Precomputed schedule tables ``betas``, ``alphas`` = 1 - betas and
     their cumulative product ``alpha_bars`` (host numpy + device
     tensors)."""
 
     def __init__(self, num_timesteps: int = 200, beta_start: float = 1e-4,
-                 beta_end: float = 0.02, device="cpu"):
-        self.betas_np = linear_beta_schedule(num_timesteps, beta_start,
+                 beta_end: float = 0.02, device="cpu",
+                 kind: str = "linear"):
+        self.betas_np = BETA_SCHEDULES[kind](num_timesteps, beta_start,
                                              beta_end)
         self.alphas_np = np.float32(1.0) - self.betas_np
         self.alpha_bars_np = np.cumprod(self.alphas_np, dtype=np.float32)

@@ -212,19 +212,27 @@ def seeded_noise(shape: Tuple[int, ...], seed: int, device) -> torch.Tensor:
 
 
 def _denoise_fn(ldm: LDM, emb: Dict[str, torch.Tensor],
-                guidance: float = 1.0, f32: bool = True):
-    """(x NCHW, t[B]) -> eps with the style pyramid (NCHW) bound.
+                guidance: float = 1.0, f32: bool = True,
+                uncond: Optional[torch.Tensor] = None):
+    """(x NCHW, t[B]) -> eps with the condition bound: the style pyramid
+    (NCHW), or a prompt's text states (``models/riffusion.py``).
 
     guidance != 1 applies classifier-free guidance
     eps = eps_u + g (eps_c - eps_u), both branches as ONE UNet call on a
-    2B batch; the unconditional branch sees a zeroed pyramid.  Without
-    guidance and with ``f32=False``, eps stays in the UNet's type (the
-    DDIM update kernel reads bf16 itself); otherwise it is f32."""
+    2B batch; the unconditional branch sees a zeroed pyramid, or
+    ``uncond`` where the model gives its own (the empty prompt's
+    states).  Without guidance and with ``f32=False``, eps stays in the
+    UNet's type (the DDIM update kernel reads bf16 itself); otherwise it
+    is f32."""
     if guidance == 1.0:
         if not f32:
             return lambda x, t: ldm.unet(x, t, emb)
         return lambda x, t: ldm.unet(x, t, emb).float()
-    emb2 = {k: torch.cat([v, torch.zeros_like(v)]) for k, v in emb.items()}
+    if uncond is not None:
+        emb2 = torch.cat([emb, uncond])
+    else:
+        emb2 = {k: torch.cat([v, torch.zeros_like(v)])
+                for k, v in emb.items()}
 
     def fn(x, t):
         eps2 = ldm.unet(torch.cat([x, x]), torch.cat([t, t]), emb2).float()
@@ -233,19 +241,29 @@ def _denoise_fn(ldm: LDM, emb: Dict[str, torch.Tensor],
     return fn
 
 
+def guided_rows(rows: int, times, guidance: float) -> int:
+    """The UNet rows a walk of ``rows`` over ``times`` runs under
+    guidance: both branches at each step (``_denoise_fn``), else 0."""
+    return 2 * rows * (len(times) - 1) if guidance != 1.0 else 0
+
+
 def _run_sampler(sampler: str, ldm: LDM, emb: Dict[str, torch.Tensor],
                  guidance: float, z_t: torch.Tensor, times, eta,
-                 return_logs: bool = False):
+                 return_logs: bool = False,
+                 uncond: Optional[torch.Tensor] = None):
     """The scan sampler over ``times`` from NCHW ``z_t``; returns the final
-    latent, or (latent, logs) with ``return_logs`` (NCHW logs)."""
+    latent, or (latent, logs) with ``return_logs`` (NCHW logs).
+    ``uncond``: the unconditional branch's condition (``_denoise_fn``)."""
     sched = ldm.schedule
     if sampler == "ddim":
-        return ddim_sample(_denoise_fn(ldm, emb, guidance, f32=False), sched,
+        return ddim_sample(_denoise_fn(ldm, emb, guidance, f32=False,
+                                       uncond=uncond), sched,
                            z_t, times, eta=eta, return_logs=return_logs)
     if sampler == "dpm++":
         if eta:
             raise ValueError("dpm++ is deterministic; eta must be 0")
-        return dpm_solver_pp_2m(_denoise_fn(ldm, emb, guidance), sched, z_t,
+        return dpm_solver_pp_2m(_denoise_fn(ldm, emb, guidance,
+                                            uncond=uncond), sched, z_t,
                                 times, return_logs=return_logs)
     raise ValueError(f"unknown sampler {sampler!r}")
 

@@ -12,10 +12,19 @@
   run on cuDNN's deterministic algorithms (``utils/chips.py
   deterministic_convs``, scoped to them), so the same request gives the
   same bits again.
-* ``_finish_outputs`` inverts the decoded images to audio on the device:
-  dB -> power -> NNLS -> Griffin-Lim.
-* ``ap`` is the engine's AudioProcessor, on its device: WAV requests
-  become images there through kernel C (``ops/fused_mel_image.py``).
+* ``_finish_outputs`` inverts the decoded images to audio on the device
+  by the model's image law: NNLS, then Griffin-Lim.
+* The engine reaches its model through a ``ServingRoute``: the model
+  itself where it brings one (Riffusion v1, ``models/riffusion.py``: a
+  request's "style" is its prompt's token ids, [77] int64), else
+  ``LDMRoute`` (the paper's LDM: a style image, the dB law).  The route
+  gives the image size, the audio configuration and front end, a
+  batch's condition, the transfer and generate programs and the
+  inversion.  ``stats()`` counts ``guided_rows`` (UNet rows run under
+  guidance, padded slots too) and ``prompts_encoded``.
+* ``ap`` is the route's WAV front end, on the engine's device: the LDM's
+  AudioProcessor (kernel C, ``ops/fused_mel_image.py``), or Riffusion's
+  (``audio/riffusion.py``, plain PyTorch).
 * ``generate`` is generation from noise (the scan DDIM, so kernel B),
   synchronous behind a lock that it waits for at most ``timeout`` s; its
   calls and waiters show in ``stats()``, and waiters count as pending
@@ -50,7 +59,7 @@ import itertools
 import queue
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -67,8 +76,11 @@ from music_style_transfer_ldm_tpu_torch.audio.quantize import (
     unit_image_to_db,
 )
 from music_style_transfer_ldm_tpu_torch.config import AudioConfig
+from music_style_transfer_ldm_tpu_torch.diffusion.ddim import (
+    generation_time_grid, transfer_time_grid,
+)
 from music_style_transfer_ldm_tpu_torch.models.ldm import (
-    match_moments, style_ddim_sample, transfer_decoded,
+    guided_rows, match_moments, style_ddim_sample, transfer_decoded,
 )
 from music_style_transfer_ldm_tpu_torch.ops.fused_sampler import (
     fused_content_style_transfer,
@@ -116,10 +128,134 @@ class EngineConfig:
     generate_guidance: float = 1.0
 
 
+@runtime_checkable
+class ServingRoute(Protocol):
+    """What the engine and the server ask of a served model.  Images are
+    NHWC [B, S, S, 1] in [0, 1]; ``transfer`` and ``generate`` return
+    the decoded images and the stats they add ({name: count})."""
+
+    image_size: Optional[int]     # None: the engine's config decides
+
+    @property
+    def audio_config(self) -> AudioConfig: ...
+
+    def audio_processor(self, a: AudioConfig, nnls_iters: int, device):
+        """The WAV front end: ``target_sr``, ``trim_silence`` and
+        ``clip_to_content_image`` (``audio/processor.py``'s)."""
+
+    def condition(self, style: np.ndarray) -> torch.Tensor:
+        """A request batch's condition on the model's device."""
+
+    def warm_condition(self, x: torch.Tensor) -> torch.Tensor:
+        """The condition of a warm-up batch of zero images ``x``."""
+
+    def transfer(self, content: torch.Tensor, cond: torch.Tensor,
+                 seeds: np.ndarray, cfg: "EngineConfig", fused: bool): ...
+
+    def generate(self, cond: torch.Tensor, seed: int,
+                 cfg: "EngineConfig"): ...
+
+    def invert(self, images: torch.Tensor, a: AudioConfig, n_iter: int,
+               nnls_iters: int) -> torch.Tensor:
+        """Images -> [B, clip_seconds * sr] audio on the device."""
+
+    def read_style(self, req: dict, decode: Callable[[str], np.ndarray]
+                   ) -> np.ndarray:
+        """A request's style from its JSON; ``decode(kind)`` reads an
+        image input (PNG or WAV) of the request."""
+
+    def wav_audio(self, audio: np.ndarray) -> np.ndarray:
+        """Served audio as a reply's WAV holds it."""
+
+
+class LDMRoute:
+    """The paper's LDM (``models/ldm.py``) as the engine serves it: a
+    request's style is an image, the unconditional branch of guidance a
+    zeroed style pyramid, audio by the dB law.  Its programs go through
+    this module's names (``transfer_decoded``,
+    ``fused_content_style_transfer``, ``style_ddim_sample``,
+    ``mel_to_audio``), where a harness may wrap them."""
+
+    image_size = None
+
+    def __init__(self, ldm):
+        self.model = ldm
+
+    @property
+    def audio_config(self) -> AudioConfig:
+        return AudioConfig()
+
+    def audio_processor(self, a: AudioConfig, nnls_iters: int, device):
+        return AudioProcessor(a.sample_rate, a.n_fft, a.hop_length,
+                              nnls_iters=nnls_iters, device=device)
+
+    def condition(self, style: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(style, np.float32),
+                               device=self.model.device)
+
+    def warm_condition(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def transfer(self, content, cond, seeds, cfg, fused: bool):
+        # 'fused-dpm++' keeps the second-order update on both routes.
+        inner = "dpm++" if cfg.sampler == "fused-dpm++" else (
+            "ddim" if cfg.sampler == "fused" else cfg.sampler)
+        if fused:
+            decoded = fused_content_style_transfer(
+                self.model, content, cond, num_timesteps=cfg.steps,
+                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
+                seeds=seeds)
+        else:
+            decoded, _ = transfer_decoded(
+                self.model, content, cond, num_timesteps=cfg.steps,
+                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
+                guidance=cfg.guidance, seeds=seeds)
+        if cfg.match_level:
+            decoded = match_moments(decoded, cond)
+        times = transfer_time_grid(cfg.steps, cfg.sample_steps)
+        return decoded, {"guided_rows": guided_rows(
+            content.shape[0], times, cfg.guidance)}
+
+    def generate(self, cond, seed, cfg):
+        sampler = ("ddim" if cfg.sampler in ("fused", "fused-dpm++")
+                   else cfg.sampler)
+        lat = cfg.image_size // 8
+        steps = (cfg.generate_steps if cfg.generate_steps is not None
+                 else cfg.steps)
+        decoded = style_ddim_sample(
+            self.model, (cond.shape[0], lat, lat, self.model.latent_dim),
+            cond, timesteps=steps, eta=cfg.eta, sampler=sampler,
+            guidance=cfg.generate_guidance, seed=seed)
+        if cfg.match_level:
+            decoded = match_moments(decoded, cond)
+        times = generation_time_grid(self.model.num_timesteps, steps)
+        return decoded, {"guided_rows": guided_rows(
+            cond.shape[0], times, cfg.generate_guidance)}
+
+    def invert(self, images, a, n_iter, nnls_iters):
+        db = unit_image_to_db(images[:, :, :, 0])
+        return mel_to_audio(
+            db_to_power(db), sr=a.sample_rate, n_fft=a.n_fft,
+            hop_length=a.hop_length, n_iter=n_iter, nnls_iters=nnls_iters,
+            length=int(round(a.clip_seconds * a.sample_rate)))
+
+    def read_style(self, req, decode):
+        return decode("style")
+
+    def wav_audio(self, audio):
+        return audio
+
+
+def route_of(model) -> ServingRoute:
+    """The model where it is its own route, else the LDM's."""
+    return model if isinstance(model, ServingRoute) else LDMRoute(model)
+
+
 class InferenceEngine:
     """Warm engine over an LDM (``models.ldm.build_ldm`` or one filled by
-    ``interop.flax_weights.load_flax_variables``); ``mesh`` spreads every
-    bucket over one replica per mesh device."""
+    ``interop.flax_weights.load_flax_variables``) or a Riffusion
+    (``models.riffusion.load_riffusion``); ``mesh`` spreads every bucket
+    over one replica per mesh device."""
 
     def __init__(self, ldm, config: Optional[EngineConfig] = None,
                  audio: Optional[AudioConfig] = None, mesh=None):
@@ -139,6 +275,11 @@ class InferenceEngine:
                 self.config, batch_buckets=tuple(sorted({
                     -(-b // n) * n for b in self.config.batch_buckets})))
         self.ldm = self.replicas[0]
+        self.routes = [route_of(r) for r in self.replicas]
+        self.route = self.routes[0]
+        if self.route.image_size is not None:
+            self.config = dataclasses.replace(
+                self.config, image_size=self.route.image_size)
         if self.config.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {self.config.sampler!r}")
         if (self.config.guidance != 1.0
@@ -149,21 +290,20 @@ class InferenceEngine:
         self.fused_bucket_max = (self.config.fused_bucket_max
                                  if self.config.fused_bucket_max is not None
                                  else fused_bucket_max())
-        self.audio = audio or AudioConfig()
+        self.audio = audio or self.route.audio_config
         self.device = self.ldm.device
         self._streams = [torch.cuda.Stream(r.device)
                          if r.device.type == "cuda" else None
                          for r in self.replicas]
-        self.ap = AudioProcessor(self.audio.sample_rate, self.audio.n_fft,
-                                 self.audio.hop_length,
-                                 nnls_iters=self.config.nnls_iters,
-                                 device=self.device)
+        self.ap = self.route.audio_processor(
+            self.audio, self.config.nnls_iters, self.device)
         self._queue: queue.Queue = queue.Queue()
         self._stats = {"requests": 0, "batches": 0, "padded_slots": 0,
                        "autoscaled_buckets": 0, "generate_calls": 0,
                        "generate_waiting": 0, "dispatches_by_bucket": {},
                        "rows_dispatched": 0, "queue_waits": 0,
-                       "queue_wait_s_total": 0.0}
+                       "queue_wait_s_total": 0.0, "guided_rows": 0,
+                       "prompts_encoded": 0}
         self._request_ids = itertools.count()
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
@@ -190,13 +330,14 @@ class InferenceEngine:
         over the replicas (each block on its replica's stream, all issued
         before the first read back) and reassembled on the host."""
         if self.mesh is None:
-            return self._transfer_on(self.ldm, content, style, seeds)
+            return self._transfer_on(self.route, content, style, seeds)
         n = len(self.replicas)
         per = content.shape[0] // n
         current = (torch.cuda.current_stream(self.device)
                    if self.device.type == "cuda" else None)
         outs = []
-        for i, (ldm, stream) in enumerate(zip(self.replicas, self._streams)):
+        for i, (ldm, route, stream) in enumerate(
+                zip(self.replicas, self.routes, self._streams)):
             rows = slice(i * per, (i + 1) * per)
             ctx = contextlib.nullcontext()
             if stream is not None:
@@ -205,7 +346,7 @@ class InferenceEngine:
                 ctx = torch.cuda.stream(stream)
             with ctx:
                 outs.append(self._transfer_on(
-                    ldm, content[rows].to(ldm.device, non_blocking=True),
+                    route, content[rows].to(ldm.device, non_blocking=True),
                     style[rows].to(ldm.device, non_blocking=True),
                     seeds[rows]))
         for stream in self._streams:
@@ -213,56 +354,34 @@ class InferenceEngine:
                 stream.synchronize()
         return {k: torch.cat([o[k].cpu() for o in outs]) for k in outs[0]}
 
-    def _transfer_on(self, ldm, content: torch.Tensor, style: torch.Tensor,
-                     seeds: np.ndarray) -> dict:
-        cfg = self.config
-        fused = cfg.sampler in ("fused", "fused-dpm++")
-        # 'fused-dpm++' keeps the second-order update on both routes.
-        inner = "dpm++" if cfg.sampler == "fused-dpm++" else (
-            "ddim" if fused else cfg.sampler)
-        if self.uses_fused(content.shape[0]):
-            decoded = fused_content_style_transfer(
-                ldm, content, style, num_timesteps=cfg.steps,
-                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
-                seeds=seeds)
-        else:
-            decoded, _ = transfer_decoded(
-                ldm, content, style, num_timesteps=cfg.steps,
-                eta=cfg.eta, sampler=inner, steps=cfg.sample_steps,
-                guidance=cfg.guidance, seeds=seeds)
-        if cfg.match_level:
-            decoded = match_moments(decoded, style)
+    def _transfer_on(self, route: ServingRoute, content: torch.Tensor,
+                     style: torch.Tensor, seeds: np.ndarray) -> dict:
+        decoded, counts = route.transfer(
+            content, style, seeds, self.config,
+            fused=self.uses_fused(content.shape[0]))
+        self._tally(counts)
         return self._finish_outputs(decoded)
+
+    def _tally(self, counts: dict) -> None:
+        with self._stats_lock:
+            for k, n in counts.items():
+                self._stats[k] += n
 
     def _finish_outputs(self, decoded: torch.Tensor) -> dict:
         """{'image': [B, S, S, 1]} plus, with invert_audio, 'audio'
-        [B, 3 * sr] from NNLS + Griffin-Lim on the device."""
-        cfg, a = self.config, self.audio
+        [B, clip_seconds * sr] from NNLS + Griffin-Lim on the device."""
+        cfg = self.config
         out = {"image": decoded}
         if cfg.invert_audio:
-            db = unit_image_to_db(decoded[:, :, :, 0])
-            out["audio"] = mel_to_audio(
-                db_to_power(db), sr=a.sample_rate, n_fft=a.n_fft,
-                hop_length=a.hop_length, n_iter=cfg.griffin_lim_iters,
-                nnls_iters=cfg.nnls_iters, length=int(3 * a.sample_rate))
+            out["audio"] = self.route.invert(
+                decoded, self.audio, cfg.griffin_lim_iters, cfg.nnls_iters)
         return out
 
     @torch.no_grad()
     @deterministic_convs()
     def _generate(self, style: torch.Tensor, seed: int) -> dict:
-        cfg = self.config
-        sampler = ("ddim" if cfg.sampler in ("fused", "fused-dpm++")
-                   else cfg.sampler)
-        lat = cfg.image_size // 8
-        decoded = style_ddim_sample(
-            self.ldm, (style.shape[0], lat, lat, self.ldm.latent_dim),
-            style, timesteps=(cfg.generate_steps
-                              if cfg.generate_steps is not None
-                              else cfg.steps),
-            eta=cfg.eta, sampler=sampler, guidance=cfg.generate_guidance,
-            seed=seed)
-        if cfg.match_level:
-            decoded = match_moments(decoded, style)
+        decoded, counts = self.route.generate(style, seed, self.config)
+        self._tally(counts)
         return self._finish_outputs(decoded)
 
     def warmup(self) -> None:
@@ -273,7 +392,8 @@ class InferenceEngine:
         again = self.config.invert_audio and self.device.type == "cuda"
         for b in self.config.batch_buckets:
             x = torch.zeros((b, S, S, 1), device=self.device)
-            self._transfer(x, x, np.zeros((b,), np.int64))
+            self._transfer(x, self.route.warm_condition(x),
+                           np.zeros((b,), np.int64))
             if again:
                 # On a card the audio inversion captures a shape's CUDA
                 # graphs at its second call (audio/graphs.py): invert each
@@ -283,9 +403,9 @@ class InferenceEngine:
                     self._finish_outputs(
                         torch.zeros((rows, S, S, 1), device=ldm.device))
             self._warm_buckets = self._warm_buckets | {b}
-        self.ap.waveform_batch_to_unit_images(
-            np.zeros((1, int(3 * self.audio.sample_rate)), np.float32))
-        self._generate(torch.zeros((1, S, S, 1), device=self.device), 0)
+        self.ap.clip_to_content_image(np.zeros(1, np.float32), size=S)
+        self._generate(self.route.warm_condition(
+            torch.zeros((1, S, S, 1), device=self.device)), 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -293,7 +413,8 @@ class InferenceEngine:
 
     def transfer_batch(self, content: np.ndarray, style: np.ndarray,
                        seeds=0) -> dict:
-        """[B, 128, 128, 1] content + style -> {'image', 'audio'} numpy.
+        """[B, S, S, 1] content + style (images; Riffusion's: [B, 77]
+        token ids) -> {'image', 'audio'} numpy.
 
         seeds: one for all items, or one per item.  Batches larger than
         the biggest bucket are split; smaller ones are padded with
@@ -322,8 +443,7 @@ class InferenceEngine:
         with span("engine.upload"):
             content = torch.as_tensor(np.asarray(content, np.float32),
                                       device=self.device)
-            style = torch.as_tensor(np.asarray(style, np.float32),
-                                    device=self.device)
+            style = self.route.condition(style)
         out = self._transfer(content, style, seeds)
         with span("engine.readback"):
             out = {k: v[:b].cpu().numpy() for k, v in out.items()}
@@ -361,9 +481,7 @@ class InferenceEngine:
         try:
             with self._stats_lock:
                 self._stats["generate_calls"] += 1
-            out = self._generate(
-                torch.as_tensor(np.asarray(style, np.float32),
-                                device=self.device), seed)
+            out = self._generate(self.route.condition(style), seed)
             return {k: v.cpu().numpy() for k, v in out.items()}
         finally:
             self._gen_lock.release()
@@ -387,8 +505,9 @@ class InferenceEngine:
 
     def submit(self, content: np.ndarray, style: np.ndarray,
                seed: int = 0) -> "queue.Queue":
-        """Enqueue one request ([128, 128, 1] images); returns a queue
-        that receives the {'image', 'audio'} dict (or an exception)."""
+        """Enqueue one request ([S, S, 1] images; Riffusion's style is
+        its [77] token ids); returns a queue that receives the
+        {'image', 'audio'} dict (or an exception)."""
         done: queue.Queue = queue.Queue(maxsize=1)
         self._queue.put((content, style, seed, done, time.perf_counter(),
                          next(self._request_ids)))
@@ -418,7 +537,8 @@ class InferenceEngine:
         def work():
             S = self.config.image_size
             x = torch.zeros((new_b, S, S, 1), device=self.device)
-            self._transfer(x, x, np.zeros((new_b,), np.int64))
+            self._transfer(x, self.route.warm_condition(x),
+                           np.zeros((new_b,), np.int64))
             with self._stats_lock:
                 # Rebind, never mutate: the dispatcher reads it unlocked.
                 self._warm_buckets = self._warm_buckets | {new_b}

@@ -13,6 +13,12 @@ Endpoints (JSON in and out; binary payloads base64):
                        <- {"image_png_b64", "audio_wav_b64"}
   POST /v1/models/<name>/{transfer|generate} -> the same, on that model
 
+Riffusion (``cli serve --model riffusion-v1``) takes its prompt as token
+ids instead of a style: ``"prompt_ids": [12, 345]`` on both routes
+(absent: the empty prompt); its content WAV goes through Riffusion's
+front end (``audio/riffusion.py``) and its reply's WAV is scaled to its
+peak.  The engine's route (``serving/engine.py ServingRoute``) says which.
+
 Hardening: optional bearer-token auth (401), a request size limit (413),
 a per-request timeout (504, the generate lock included) and load
 shedding on the engine's pending count (429 with Retry-After).
@@ -173,7 +179,8 @@ def make_handler(engine, max_request_bytes: int = MAX_REQUEST_BYTES,
                                               f"exceeds {max_request_bytes}"})
                     return
                 req = json.loads(self.rfile.read(length) or b"{}")
-                style = self._decode_input(engine, req, "style")
+                style = engine.route.read_style(
+                    req, lambda kind: self._decode_input(engine, req, kind))
                 seed = int(req.get("seed", 0))
                 if op == "generate":
                     batch = engine.generate(style[None], seed=seed,
@@ -188,7 +195,8 @@ def make_handler(engine, max_request_bytes: int = MAX_REQUEST_BYTES,
                 resp = {"image_png_b64": _image_to_png_b64(out["image"])}
                 if "audio" in out:
                     resp["audio_wav_b64"] = _audio_to_wav_b64(
-                        out["audio"], engine.ap.target_sr)
+                        engine.route.wav_audio(out["audio"]),
+                        engine.ap.target_sr)
                 self._json(200, resp)
             except (queue.Empty, TimeoutError):
                 self._json(504, {"error": "request timed out after "
