@@ -131,7 +131,12 @@ Phases, in order; any failure exits non-zero:
      ``SinusoidalPositionEmbeddings`` card against CPU; the card's peak
      figures from ``utils/chips.py``, which every bound here reads;
   7. times with CUDA events (host clock for the CLI, HTTP and training
-     steps), each printed with the card's name and power limit: kernel A
+     steps), each printed with the card's name and power limit: the
+     channels-last GroupNorm kernel at Riffusion's shapes (bf16, with and
+     without SiLU) against its plain version in f32 and run to run,
+     beside its bytes bound, its plain version and nn.GroupNorm + F.silu,
+     and one full-size Riffusion dispatch with every norm through it
+     (alone: ``python3 chip_smoke.py --group-norm-only``); kernel A
      at B = 1, 2, 4, 8 beside the scan route and the bound, with its grid,
      shared memory per block and launch plan; kernels B and C back to
      back, and also their device time per launch (CUDA events over
@@ -355,6 +360,159 @@ def device_us(fn, reps=50):
         cycles *= 4
     fail(f"a sleep of {cycles // 4} cycles did not cover the host's issue "
          f"of {reps} calls")
+
+
+# The channels-last GroupNorm kernel (ops/group_norm.py) at Riffusion's
+# shapes, bf16: the UNet's [8, 320, 64, 64] and [8, 960, 64, 64] (8
+# guided rows at 512x512) and the VAE's [4, 128, 512, 512].
+GROUP_NORM_SHAPES = ((8, 320, 64, 64), (8, 960, 64, 64), (4, 128, 512, 512))
+# bf16 kernel vs the f32 plain version on the same input: one rounding
+# to bf16 (2^-9 of the value) with room, plus f32 sums and __expf.
+TOL_GN_BF16_REL, TOL_GN_BF16_ABS = 2.0 ** -8, 1e-4
+
+
+def group_norm_times(card: str, hbm_bytes: float) -> dict:
+    """The GroupNorm kernel at GROUP_NORM_SHAPES in bf16, with and without
+    SiLU, held against its plain version in f32 and timed (CUDA events,
+    back to back, so a tensor under the 50 MB L2 may stay in it) beside
+    its bytes bound (x read once, y written once), its plain version
+    (which returns channels-last) and nn.GroupNorm + F.silu on the same
+    channels-last input (PyTorch's copy to NCHW included; its NCHW output
+    not copied back).  Returns {shape: {silu: {...}}}."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from music_style_transfer_ldm_tpu_torch.ops import group_norm as gn
+
+    built = gn.build_group_norm()
+    print(f"build group_norm_nhwc.cu: {built['seconds']:.1f} s")
+    for line in built["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    out: dict = {}
+    for shape in GROUP_NORM_SHAPES:
+        N, C, H, W = shape
+        x = torch.randn(shape, device=dev, generator=g).mul_(2.0).add_(
+            0.5).bfloat16().contiguous(memory_format=torch.channels_last)
+        mod = nn.GroupNorm(32, C, 1e-5).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            mod.weight.copy_(1 + 0.1 * torch.randn(C, device=dev,
+                                                   generator=g))
+            mod.bias.copy_(0.1 * torch.randn(C, device=dev, generator=g))
+        w, b = mod.weight.detach(), mod.bias.detach()
+        bound_ms = 1e3 * 2 * x.numel() * x.element_size() / hbm_bytes
+        key = "x".join(map(str, shape))
+        out[key] = {}
+        for silu in (False, True):
+            y = gn.group_norm_nhwc(x, w, b, 32, 1e-5, silu=silu)
+            want = gn.group_norm_nhwc_reference(
+                x.float(), w.float(), b.float(), 32, 1e-5, silu=silu)
+            err = (y.float() - want).abs()
+            over = (err - TOL_GN_BF16_REL * want.abs()).max().item()
+            check(y.is_contiguous(memory_format=torch.channels_last)
+                  and y.dtype == torch.bfloat16, "group norm layout")
+            check(over <= TOL_GN_BF16_ABS,
+                  f"group norm {key} silu={silu} vs plain f32: "
+                  f"{over:.3g} over {TOL_GN_BF16_REL:.3g} of the value")
+            again = gn.group_norm_nhwc(x, w, b, 32, 1e-5, silu=silu)
+            check(torch.equal(again, y), f"group norm {key} run to run")
+            reps = 20 if x.numel() > 1e8 else 100
+            act = F.silu if silu else (lambda t: t)
+            row = {
+                "ms": cuda_ms(lambda: gn.group_norm_nhwc(
+                    x, w, b, 32, 1e-5, silu=silu), reps),
+                "bound_ms": bound_ms,
+                "plain_ms": cuda_ms(lambda: gn.group_norm_nhwc_reference(
+                    x, w, b, 32, 1e-5, silu=silu), reps),
+                "library_ms": cuda_ms(lambda: act(mod(x)), reps),
+                "host_us": host_us(lambda: gn.group_norm_nhwc(
+                    x, w, b, 32, 1e-5, silu=silu), 200),
+                "library_host_us": host_us(lambda: act(mod(x)), 200),
+                "max_err": err.max().item()}
+            out[key][str(silu)] = row
+            print(f"time {card} group norm {key} bf16 silu={silu}: kernel "
+                  f"{row['ms']:.4f} ms, bound {bound_ms:.4f} "
+                  f"({100 * bound_ms / row['ms']:.1f} %), plain "
+                  f"{row['plain_ms']:.4f}, nn.GroupNorm+silu "
+                  f"{row['library_ms']:.4f}; host {row['host_us']:.1f} us "
+                  f"a call (nn.GroupNorm+silu {row['library_host_us']:.1f}); "
+                  f"max err vs plain f32 {row['max_err']:.3g}")
+        del x
+    return out
+
+
+def group_norm_dispatch(card: str) -> dict:
+    """One served Riffusion dispatch of 4 clips at full size (seeded
+    weights, bf16, 512x512, 37 guided UNet calls at 8 rows, the VAE's
+    encode and decode) under the program tracer and torch.profiler: every
+    norm through the kernel (``group_norm.calls`` = 37 x 61 + 22 + 30, as
+    many kernel pairs launched), no PyTorch GroupNorm kernel on the card,
+    and the dispatch's heaviest device kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_style_transfer_ldm_tpu_torch.models.clip_text import (
+        prompt_ids,
+    )
+    from music_style_transfer_ldm_tpu_torch.models.riffusion import (
+        build_riffusion, riffusion_transfer,
+    )
+    from music_style_transfer_ldm_tpu_torch.ops import group_norm as gn
+    from music_style_transfer_ldm_tpu_torch.utils import profiling
+
+    dev, clips = torch.device("cuda"), 4
+    model = build_riffusion(device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    content = torch.rand(clips, 512, 512, 1, device=dev, generator=g)
+    ids = torch.as_tensor(np.stack([
+        prompt_ids(list(range(1, 6 + i)), model.config.text)
+        for i in range(clips)]), device=dev)
+
+    def dispatch():
+        return riffusion_transfer(model, content, ids,
+                                  seeds=list(range(clips)))
+    dispatch()
+    torch.cuda.synchronize()
+    launches = gn.group_norm_nhwc.launches
+    tracer = profiling.enable()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dispatch()
+            torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    calls = tracer.counters.get("group_norm.calls", 0)
+    pairs = gn.group_norm_nhwc.launches - launches
+    per_name: dict = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.device_time_total > 0:
+            ms, n = per_name.get(e.key, (0.0, 0))
+            per_name[e.key] = (ms + e.device_time_total / 1e3, n + e.count)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    top += [kv for kv in per_name.items() if "gn_" in kv[0] and kv not in top]
+    print(f"riffusion dispatch {card} ({clips} clips, profiled, wall "
+          f"{wall_ms:.1f} ms): group_norm.calls {calls}, kernel pairs "
+          f"{pairs}; device ms by kernel:")
+    for name, (ms, n) in top:
+        print(f"  {ms:9.2f} ms {n:6d}x  {name[:110]}")
+    moments = [n for n in per_name if "RowwiseMoments" in n
+               or "GroupNorm" in n]
+    check(calls == 37 * 61 + 22 + 30,
+          f"group_norm.calls {calls} in one dispatch")
+    check(pairs == calls, f"{pairs} kernel pairs for {calls} norms")
+    check(not moments, f"PyTorch's GroupNorm kernels ran: {moments}")
+    del model
+    torch.cuda.empty_cache()
+    return {"group_norm_calls": calls, "kernel_pairs": pairs,
+            "profiled_wall_ms": wall_ms,
+            "device_ms_top": [[name, ms, n] for name, (ms, n) in top]}
 
 
 def conv_taps_f32(x, w9, dgrad):
@@ -1946,6 +2104,28 @@ def dp_stats_err(got: dict, want: dict) -> float:
                for k, v in want.items())
 
 
+def group_norm_only() -> int:
+    """``--group-norm-only``: the card, then ``group_norm_times`` and
+    ``group_norm_dispatch``."""
+    import torch
+    from music_style_transfer_ldm_tpu_torch.utils.chips import (
+        hbm_bytes_per_sec,
+    )
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}")
+    out = group_norm_times(f"[{smi}]", hbm_bytes_per_sec(kind))
+    out["dispatch"] = group_norm_dispatch(f"[{smi}]")
+    print(json.dumps({"group_norm": out, "card": smi}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the measurements here (JSON)")
@@ -1957,9 +2137,14 @@ def main() -> int:
         ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     for flag in ("--store", "--spec"):
         ap.add_argument(flag, help=argparse.SUPPRESS)
+    ap.add_argument("--group-norm-only", action="store_true",
+                    help="run only phase 7's GroupNorm kernel check and "
+                         "times")
     args = ap.parse_args()
     if args.dp_worker:
         return dp_worker(args)
+    if args.group_norm_only:
+        return group_norm_only()
 
     # ---- 1. device ----------------------------------------------------
     laps = Laps()
@@ -3787,6 +3972,8 @@ def main() -> int:
 
     # ---- 7. times -------------------------------------------------------
     laps.start("7")
+    results["group_norm"] = group_norm_times(card, H100_BYTES)
+    results["group_norm"]["dispatch"] = group_norm_dispatch(card)
     times: dict = {"kernel_a_ms": {}, "plain_a_ms": {}, "scan_route_ms": {},
                    "bound_a_ms": {}, "engine_request_s": {},
                    "scan_engine_request_s": {}, "kernel_a_f32_ms": {}}

@@ -1,9 +1,16 @@
 """The layers Stable Diffusion's UNet and VAE share, named as diffusers
 names them (so a published state dict loads as it is), NCHW.
 
+Every GroupNorm runs through ``norm`` (``ops/group_norm.py``): on the
+card one channels-last kernel that keeps the norm's input and output
+channels-last, with the SiLU after it and the time embedding's add
+before it fused in.  The ``nn.GroupNorm`` modules stay, as holders of
+the weights under diffusers' names.
+
 * ``ResnetBlock``: GroupNorm, SiLU, 3x3 conv, the time embedding added
-  after the first conv (UNet only), GroupNorm, SiLU, 3x3 conv, and a 1x1
-  ``conv_shortcut`` where the width changes;
+  after the first conv (UNet only, fused into the second norm),
+  GroupNorm, SiLU, 3x3 conv, and a 1x1 ``conv_shortcut`` where the
+  width changes;
 * ``Attention``: ``to_q``/``to_k``/``to_v`` (with or without bias) and
   ``to_out.0``, through ``F.scaled_dot_product_attention`` (on the card
   in bf16 the flash kernel takes head dims up to 256);
@@ -18,6 +25,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from music_style_transfer_ldm_tpu_torch.ops.group_norm import group_norm_nhwc
+
+
+def norm(gn: nn.GroupNorm, x: torch.Tensor, silu: bool = False,
+         add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``gn`` applied to x (+ ``add`` [B, C] first), then SiLU when
+    ``silu``, through the channels-last kernel on the card."""
+    return group_norm_nhwc(x, gn.weight, gn.bias, gn.num_groups, gn.eps,
+                           silu=silu, add=add)
 
 
 class ResnetBlock(nn.Module):
@@ -34,10 +51,10 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        if self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(norm(self.norm1, x, silu=True))
+        add = (None if self.time_emb_proj is None
+               else self.time_emb_proj(F.silu(temb)))
+        h = self.conv2(norm(self.norm2, h, silu=True, add=add))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -14,6 +14,9 @@ NCHW, named as diffusers names it.
   nearest 2x and a 3x3 conv (not at the last level);
 * out: GroupNorm, SiLU, ``conv_out`` 320->4.
 
+Every GroupNorm goes through ``sd_layers.norm``, so on the card the
+activations stay channels-last through the norms.
+
 Transformer2D: GroupNorm (eps 1e-6), a 1x1 ``proj_in``, one block
 x += SelfAttn(LN x); x += CrossAttn(LN x, text); x += FF(LN x) with a
 GEGLU feed-forward (Linear C->8C, a * gelu(gate), Linear 4C->C), a 1x1
@@ -32,7 +35,7 @@ from torch import nn
 
 from music_style_transfer_ldm_tpu_torch.config import SDUNetConfig
 from music_style_transfer_ldm_tpu_torch.models.sd_layers import (
-    Attention, Downsample, ResnetBlock, Upsample, image, tokens,
+    Attention, Downsample, ResnetBlock, Upsample, image, norm, tokens,
 )
 
 
@@ -106,7 +109,7 @@ class Transformer2D(nn.Module):
         self.proj_out = nn.Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        h = self.proj_in(self.norm(x))
+        h = self.proj_in(norm(self.norm, x))
         t = tokens(h)
         for block in self.transformer_blocks:
             t = block(t, context)
@@ -217,5 +220,5 @@ class SDUNet(nn.Module):
                 if attn is not None:
                     h = attn(h, context)
             h = block.resample(h)
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        h = self.conv_out(norm(self.conv_norm_out, h, silu=True))
         return h.contiguous()

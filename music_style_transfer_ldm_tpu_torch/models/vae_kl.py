@@ -9,18 +9,19 @@ variance; ``quant_conv`` 1x1.  Decoder: ``post_quant_conv`` 1x1,
 ``conv_in`` 4->512, the mid block, four levels of three ResNets (512,
 512, 256, 128), each but the last ending in nearest 2x and a 3x3 conv;
 GroupNorm, SiLU, ``conv_out`` 128->3.  GroupNorm eps 1e-6.  The
-latent is the mean times 0.18215; 83,653,863 parameters.
+latent is the mean times 0.18215; 83,653,863 parameters.  Every
+GroupNorm goes through ``sd_layers.norm``, so on the card the
+activations stay channels-last through the norms.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from music_style_transfer_ldm_tpu_torch.config import VAEConfig
 from music_style_transfer_ldm_tpu_torch.models.sd_layers import (
-    Attention, Downsample, ResnetBlock, Upsample, image, tokens,
+    Attention, Downsample, ResnetBlock, Upsample, image, norm, tokens,
 )
 
 
@@ -33,7 +34,7 @@ class SpatialAttention(Attention):
         self.group_norm = nn.GroupNorm(groups, dim, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.group_norm(x)
+        h = norm(self.group_norm, x)
         return image(super().forward(tokens(h)), h) + x
 
 
@@ -88,7 +89,7 @@ class VAEEncoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(norm(self.conv_norm_out, x, silu=True))
 
 
 class VAEDecoder(nn.Module):
@@ -112,7 +113,7 @@ class VAEDecoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for block in self.up_blocks:
             x = block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(norm(self.conv_norm_out, x, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -36,7 +36,9 @@ from music_style_transfer_ldm_tpu_torch.audio.quantize import (
     db_to_unit_image,
 )
 from music_style_transfer_ldm_tpu_torch.ops._build import build_library
-from music_style_transfer_ldm_tpu_torch.ops._launch import stream_handle
+from music_style_transfer_ldm_tpu_torch.ops._launch import (
+    stream_handle, tickets,
+)
 
 # The kernel's frame tile (a multiple of 32) and largest row group, set
 # here and compiled into csrc/fused_mel_image.cu as kTileT and kMaxRows;
@@ -117,7 +119,6 @@ def _library():
 
 
 _PLANS: collections.OrderedDict = collections.OrderedDict()
-_TICKETS: dict = {}
 
 
 def _plan(fb: torch.Tensor) -> dict:
@@ -137,16 +138,6 @@ def _plan(fb: torch.Tensor) -> dict:
         while len(_PLANS) > 8:
             _PLANS.popitem(last=False)
     return plan
-
-
-def _tickets(device: torch.device, stream: int, batch: int) -> torch.Tensor:
-    """Per-item tickets, zeroed once per (device, stream) and left zeroed
-    by every launch, so launches that can overlap never share them."""
-    buf = _TICKETS.get((device, stream))
-    if buf is None or buf.numel() < batch:
-        buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
-        _TICKETS[(device, stream)] = buf
-    return buf
 
 
 def mel_image_grid(fb: torch.Tensor, T: int) -> dict:
@@ -198,7 +189,7 @@ def _launch(fb, power_spec, max_db, top_db, quantize):
         fb.data_ptr(), spec.data_ptr(), *spec.stride(),
         plan["bands"].data_ptr(), plan["groups"].data_ptr(),
         plan["n_groups"], plan["max_rows"], out, out + 4 * B * M * T,
-        _tickets(dev, stream, B).data_ptr(), B, M, F, T, float(max_db),
+        tickets(dev, stream, B).data_ptr(), B, M, F, T, float(max_db),
         float(top_db), float(np.float32(255.0 / max_db)),
         int(bool(quantize)), stream)
     if err != 0:

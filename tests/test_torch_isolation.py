@@ -29,6 +29,7 @@ SCRIPTS = {
         "--teacher", "t.pt", "--student", "s.pt", "--sample-steps", "2",
         "--pack", "p.spk", "--pairings", "p.csv"],
     "tools/torch_fullscale_run.py": [],
+    "tools/torch_riffusion_unet_times.py": [],
     "examples/torch_end_to_end_demo.py": [],
     "examples/torch_real_melody_demo.py": [],
 }
